@@ -10,11 +10,12 @@ plain PyTorch version.
   nn/         building blocks (activations, normalization, resize, UNet block)
   zoo/        UNet encoder / decoder / head, models, flax weight bridge, fused UNet
   inference/  tiled huge-image inference with d4 TTA
+  losses/     segmentation and classification losses (Lovasz sorts on K4 / K5)
   ops/        the CUDA kernels' wrappers and their plain versions
 """
 
 __version__ = "0.1.0"
 
-from . import core, inference, nn, ops, zoo
+from . import core, inference, losses, nn, ops, zoo
 
-__all__ = ["core", "inference", "nn", "ops", "zoo", "__version__"]
+__all__ = ["core", "inference", "losses", "nn", "ops", "zoo", "__version__"]

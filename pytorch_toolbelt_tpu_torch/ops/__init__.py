@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version."""
 
 from .conv_kernels import conv3x3, conv3x3_reference, fold_batchnorm, pack_conv3x3_weights
+from .sort import bitonic_sort_chunked, sort_reference, split_sort
 from .tile_merge import detect_regular_grid, grid_merge, grid_merge_reference
 
 __all__ = [
+    "bitonic_sort_chunked",
     "conv3x3",
     "conv3x3_reference",
     "detect_regular_grid",
@@ -11,4 +13,6 @@ __all__ = [
     "grid_merge",
     "grid_merge_reference",
     "pack_conv3x3_weights",
+    "sort_reference",
+    "split_sort",
 ]

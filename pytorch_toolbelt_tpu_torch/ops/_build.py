@@ -32,13 +32,20 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# name: (return type, argument types).  Sizes that can pass 2^31 are c_longlong.
 _SIGNATURES = {
     # device, tiles, tiles_dtype, weight, out, out_dtype, norm_out, channels, th, tw,
     # ty, tx, sh, sw, out_h, out_w, off_y, off_x, normalize, eps, stream
-    "ptt_grid_merge": [_I, _P, _I, _P, _P, _I, _P] + [_I] * 12 + [_F, _P],
+    "ptt_grid_merge": (_I, [_I, _P, _I, _P, _P, _I, _P] + [_I] * 12 + [_F, _P]),
     # device, x, w, scale, bias, y, B, H, W, cin, cout, cin_pad, cout_pad, relu, stream
-    "ptt_conv3x3_bf16": [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "ptt_conv3x3_bf16": (_I, [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]),
+    # rows, n -> 4-byte words of scratch
+    "ptt_radix_sort_workspace": (_LL, [_LL, _LL]),
+    "ptt_merge_sort_workspace": (_LL, [_LL, _LL]),
+    # device, keys, payload, keys_out, payload_out, workspace, key_kind, rows, n, stream
+    "ptt_radix_sort": (_I, [_I, _P, _P, _P, _P, _P, _I, _LL, _LL, _P]),
+    "ptt_merge_sort": (_I, [_I, _P, _P, _P, _P, _P, _I, _LL, _LL, _P]),
 }
 
 _lock = threading.Lock()
@@ -89,10 +96,10 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _library is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
+            for name, (restype, argtypes) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype
             lib.ptt_error_string.argtypes = [ctypes.c_int]
             lib.ptt_error_string.restype = ctypes.c_char_p
             _library = lib

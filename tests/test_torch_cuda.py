@@ -136,3 +136,177 @@ def test_fused_unet_on_cuda_matches_module(dev):
     got = fuse_unet_inference(model)(x)
     assert conv3x3.launches == before + 2 * (2 * 3 - 1) + 1
     assert float((got.float() - want).abs().max()) <= 5e-2 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5: the row sorts
+# ---------------------------------------------------------------------------
+
+
+def _awkward_keys(rows, n, key_dtype, seed):
+    """Heavy ties; float keys add -0.0 / +0.0, +-inf and NaN, int keys the extremes."""
+    gen = torch.Generator().manual_seed(seed)
+    pick = torch.rand(rows, n, generator=gen)
+    if key_dtype == torch.float32:
+        keys = torch.randint(-6, 6, (rows, n), generator=gen).float() * 0.5
+        for lo, hi, value in ((0.0, 0.1, -0.0), (0.1, 0.2, 0.0), (0.2, 0.25, float("nan")),
+                              (0.25, 0.28, float("inf")), (0.28, 0.31, float("-inf"))):
+            keys[(pick >= lo) & (pick < hi)] = value
+        return keys
+    keys = torch.randint(-9, 9, (rows, n), generator=gen, dtype=torch.int32)
+    keys[pick < 0.05] = torch.iinfo(torch.int32).min
+    keys[pick > 0.95] = torch.iinfo(torch.int32).max
+    return keys
+
+
+def _payload(rows, n, payload_dtype, seed):
+    gen = torch.Generator().manual_seed(seed + 1)
+    if payload_dtype == torch.int32:
+        return torch.randint(-(2**31), 2**31 - 1, (rows, n), generator=gen, dtype=torch.int64).to(torch.int32)
+    return torch.randn(rows, n, generator=gen)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _sorts():
+    from pytorch_toolbelt_tpu_torch.ops import bitonic_sort_chunked, split_sort
+
+    return {"K4": bitonic_sort_chunked, "K5": split_sort}
+
+
+@pytest.mark.parametrize("pair", [(torch.float32, torch.int32), (torch.int32, torch.float32)], ids=["f32_i32", "i32_f32"])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 1000003), (19, 1 << 16), (152, 4099)])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_sort_kernels_equal_sort_reference(dev, kernel, shape, pair):
+    from pytorch_toolbelt_tpu_torch.ops import sort_reference
+
+    sort = _sorts()[kernel]
+    keys = _awkward_keys(*shape, pair[0], seed=shape[1]).to(dev)
+    payload = _payload(*shape, pair[1], seed=shape[1]).to(dev)
+    before = sort.launches
+    got_k, got_p = sort(keys, payload)
+    assert sort.launches == before + 1
+    want_k, want_p = sort_reference(keys, payload)
+    assert torch.equal(_bits(got_k), _bits(want_k)) and torch.equal(_bits(got_p), _bits(want_p))
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_sort_kernels_keep_every_nan_last_and_in_order(dev, kernel):
+    """NaNs of every bit pattern tie and come last in input order, as in
+    torch.sort on the CPU (torch.sort on CUDA orders them by bit pattern)."""
+    from pytorch_toolbelt_tpu_torch.ops import sort_reference
+
+    keys = _awkward_keys(3, 5001, torch.float32, seed=11)
+    bits = keys.view(torch.int32)
+    patterns = torch.tensor([0x7FC00000, 0x7FFFFFFF, 0x7F800001, -0x00400000, -1], dtype=torch.int32)
+    nan = torch.isnan(keys)
+    bits[nan] = patterns[torch.arange(int(nan.sum())) % len(patterns)]
+    payload = _payload(3, 5001, torch.int32, seed=11)
+    got_k, got_p = _sorts()[kernel](keys.to(dev), payload.to(dev))
+    want_k, want_p = sort_reference(keys, payload)
+    assert torch.equal(_bits(got_k).cpu(), _bits(want_k)) and torch.equal(got_p.cpu(), want_p)
+
+
+def test_sort_kernels_reject_non_contiguous(dev):
+    keys = torch.zeros(8, 4, device=dev).t()
+    payload = torch.zeros(4, 8, dtype=torch.int32, device=dev)
+    for sort in _sorts().values():
+        with pytest.raises(ValueError):
+            sort(keys, payload)
+
+
+# ---------------------------------------------------------------------------
+# Every loss on CUDA against the same loss on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _loss_cases():
+    from pytorch_toolbelt_tpu_torch import losses as L
+
+    b, c, h, w = 2, 5, 16, 16
+    gen = torch.Generator().manual_seed(3)
+    logits = torch.randn(b, c, h, w, generator=gen)
+    labels = torch.randint(0, c, (b, h, w), generator=gen)
+    labels_ignored = labels.masked_fill(torch.rand(b, h, w, generator=gen) < 0.1, 255)
+    binary = (torch.rand(b, c, h, w, generator=gen) > 0.5).float()
+    binary1 = binary[:, :1].clone()
+    probas = torch.softmax(logits, 1)
+    vec, vec_labels = torch.randn(8, c, generator=gen), torch.randint(0, c, (8,), generator=gen)
+    reg_a, reg_b = 3 * torch.randn(b, 17, generator=gen), 3 * torch.randn(b, 17, generator=gen)
+    last = logits.movedim(1, -1).contiguous()
+    return [
+        ("binary_focal", L.BinaryFocalLoss(alpha=0.25), logits, binary),
+        ("ce_focal", L.CrossEntropyFocalLoss(ignore_index=255), logits, labels_ignored),
+        ("ce_focal_normalized", L.CrossEntropyFocalLoss(normalized=True), logits, labels),
+        ("dice_multiclass", L.DiceLoss("multiclass", ignore_index=255), logits, labels_ignored),
+        ("dice_multilabel", L.DiceLoss("multilabel", log_loss=True), logits, binary),
+        ("dice_binary", L.DiceLoss("binary", from_logits=False), torch.sigmoid(logits[:, :1]), binary1),
+        ("jaccard_multiclass", L.JaccardLoss("multiclass", classes=(1, 3)), logits, labels),
+        ("jaccard_binary", L.JaccardLoss("binary"), logits[:, :1].contiguous(), binary1),
+        ("lovasz", L.LovaszLoss(ignore=255), probas, labels_ignored),
+        ("lovasz_per_image", L.LovaszLoss(per_image=True, classes="all"), probas, labels),
+        ("binary_lovasz", L.BinaryLovaszLoss(ignore_index=255), logits[:, 0].contiguous(),
+         labels_ignored.clamp_max(1).masked_fill(labels_ignored == 255, 255).float()),
+        ("binary_lovasz_per_image", L.BinaryLovaszLoss(per_image=True), logits[:, :1].contiguous(), binary1),
+        ("soft_bce", L.SoftBCEWithLogitsLoss(smooth_factor=0.1), logits, binary),
+        ("soft_ce", L.SoftCrossEntropyLoss(smooth_factor=0.1, ignore_index=255), logits, labels_ignored),
+        ("balanced_bce", L.BalancedBCEWithLogitsLoss(), logits, binary),
+        ("binary_soft_f1", L.BinarySoftF1Loss(), logits[:, 0].contiguous(), binary[:, 0].contiguous()),
+        ("soft_f1", L.SoftF1Loss(), vec, vec_labels),
+        ("wing", L.WingLoss(), reg_a, reg_b),
+        ("log_cosh", L.LogCoshLoss(), reg_a, reg_b),
+        ("focal_cosine", L.FocalCosineLoss(), vec, vec_labels),
+        ("quality_focal", L.QualityFocalLoss(), reg_a, torch.sigmoid(reg_b)),
+        ("bitempered", L.BiTemperedLogisticLoss(0.8, 1.2), last, labels),
+        ("bitempered_binary", L.BinaryBiTemperedLogisticLoss(0.5, 0.8), logits[:, :1].contiguous(), binary1),
+        ("joint", L.JointLoss(L.CrossEntropyFocalLoss(), L.LovaszLoss(), 1.0, 0.5), probas, labels),
+        ("weighted", L.WeightedLoss(L.DiceLoss("multiclass"), 0.3), logits, labels),
+    ]
+
+
+LOSS_CASES = _loss_cases()
+
+
+@pytest.mark.parametrize("case", range(len(LOSS_CASES)), ids=[c[0] for c in LOSS_CASES])
+def test_loss_on_cuda_matches_cpu(dev, case):
+    from pytorch_toolbelt_tpu_torch.ops import bitonic_sort_chunked
+
+    name, loss, x, y = LOSS_CASES[case]
+    results = []
+    for device in (torch.device("cpu"), dev):
+        xi = x.detach().to(device).clone().requires_grad_(True)
+        before = bitonic_sort_chunked.launches
+        value = loss(xi, y.to(device))
+        value.backward()
+        if device.type == "cuda" and "lovasz" in name:
+            assert bitonic_sort_chunked.launches == before + 2  # the forward sort and the backward's
+        results.append((value.detach().cpu(), xi.grad.cpu()))
+    (want_v, want_g), (got_v, got_g) = results
+    # CUDA reductions (sums, cumsums, softmax) add in another order than the CPU's
+    torch.testing.assert_close(got_v, want_v, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got_g, want_g, rtol=1e-5, atol=1e-5 * float(want_g.abs().max()))
+
+
+def test_lovasz_split_sort_route_on_cuda(dev):
+    from pytorch_toolbelt_tpu_torch.losses import LovaszLoss, lovasz
+    from pytorch_toolbelt_tpu_torch.ops import bitonic_sort_chunked, split_sort
+
+    gen = torch.Generator().manual_seed(4)
+    probas = torch.softmax(torch.randn(2, 19, 32, 32, generator=gen), 1)
+    labels = torch.randint(0, 19, (2, 32, 32), generator=gen)
+    values = []
+    for split in (False, True):
+        lovasz.SPLIT_SORT = split
+        try:
+            x = probas.to(dev).requires_grad_(True)
+            k4, k5 = bitonic_sort_chunked.launches, split_sort.launches
+            value = LovaszLoss()(x, labels.to(dev))
+            value.backward()
+            assert (split_sort.launches - k5, bitonic_sort_chunked.launches - k4) == ((2, 0) if split else (0, 2))
+            values.append((value.detach(), x.grad))
+        finally:
+            lovasz.SPLIT_SORT = False
+    # both sorts are stable and equal bit for bit, so the two routes agree exactly
+    assert torch.equal(values[0][0], values[1][0]) and torch.equal(values[0][1], values[1][1])
