@@ -4,6 +4,10 @@
 Host side, ``ImageSlicer`` and the pyramid window are the same numpy code as
 in the JAX package.
 
+``TileMerger`` accumulates streamed batches on the device; with
+``use_pallas=True`` each batch is one launch of the scatter-merge kernel
+(K3, :func:`~pytorch_toolbelt_tpu_torch.ops.accumulate_tiles`).
+
 Device side, :func:`tiled_apply` pads the image on the device, gathers each
 batch's tiles, runs ``model_fn``, writes each tile's prediction into a
 preallocated ``[N, K, th, tw]`` stack and ends with one launch of the
@@ -19,12 +23,14 @@ from typing import Callable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..ops.tile_merge import accumulate_tiles as scatter_merge
 from ..ops.tile_merge import detect_regular_grid, grid_merge
 from .tta import d4_image2mask, d4_image_augment_views, d4_image_deaugment_views
 
 __all__ = [
     "ImageSlicer",
     "TileMerger",
+    "accumulate_tiles",
     "clear_tiled_cache",
     "compute_pyramid_patch_weight_loss",
     "tiled_apply",
@@ -220,8 +226,16 @@ class ImageSlicer:
         normalized = np.divide(image, norm_mask).astype(dtype)
         return self.crop_to_orignal_size(normalized)
 
-    def crop_to_orignal_size(self, image: np.ndarray) -> np.ndarray:
+    def crop_to_orignal_size(self, image: Union[np.ndarray, torch.Tensor]):
+        """Crop the margins: an [H, W, ...] numpy array, or a [C, H, W] tensor
+        such as ``TileMerger.merge()`` returns."""
         # (sic) name kept for API compatibility
+        if isinstance(image, torch.Tensor):
+            if tuple(image.shape[-2:]) != self.target_shape:
+                raise ValueError(f"expected [..., {self.target_shape[0]}, {self.target_shape[1]}], "
+                                 f"got {tuple(image.shape)}")
+            return image[..., self.margin_top : self.margin_top + self.image_height,
+                         self.margin_left : self.margin_left + self.image_width]
         assert image.shape[0] == self.target_shape[0]
         assert image.shape[1] == self.target_shape[1]
         crop = image[
@@ -242,24 +256,49 @@ class ImageSlicer:
         return w
 
 
+def accumulate_tiles(canvas, norm_mask, tiles, coords_yx, weight, donate: bool = False):
+    """Weighted overlap-add of a batch of tiles through the scatter-merge
+    kernel (K3, :func:`~pytorch_toolbelt_tpu_torch.ops.accumulate_tiles`).
+
+    canvas [C, H, W] and norm_mask [1, H, W] fp32, tiles [N, C, th, tw],
+    coords_yx [N, 2] (row, col), weight [th, tw] (or [th, tw, 1]).  Returns
+    new accumulators and leaves the inputs as they were; ``donate=True``
+    updates the input buffers in place instead and returns them.
+    """
+    if not donate:
+        canvas, norm_mask = canvas.clone(), norm_mask.clone()
+    th, tw = tiles.shape[2:]
+    weight = torch.as_tensor(weight, dtype=torch.float32, device=canvas.device).reshape(th, tw).contiguous()
+    return scatter_merge(canvas, norm_mask, tiles, coords_yx, weight)
+
+
 class TileMerger:
     """Device-resident accumulator of NCHW tile batches.
 
-    A first ``integrate_batch`` call that delivers a complete regular grid
-    spanning the canvas merges through the grid-merge kernel (K1).  Later or
-    partial batches are added tile by tile with slice-adds.
+    The canvas lives on ``device``, by default the current CUDA device (it
+    raises where there is none); ``device="cpu"`` merges on the CPU.
 
-    ``use_pallas=True`` asks for the TPU package's scatter kernel, whose port
-    (K3 in ROADMAP.md) does not exist yet, and raises.
+    Merge strategy (``use_pallas``):
+
+    * ``"auto"`` (default): a first ``integrate_batch`` call that delivers a
+      complete regular grid spanning the canvas merges through the
+      grid-merge kernel (K1); later or partial batches are added tile by
+      tile with slice-adds.
+    * ``False``: always the slice-adds.
+    * ``True``: every batch goes through the scatter-merge kernel (K3), one
+      launch per batch, reading fp32 or bf16 tiles as they are.  The sums
+      are those of the slice-adds, bit for bit.
     """
 
     def __init__(self, image_shape, channels: int, weight: np.ndarray, dtype=torch.float32, device=None,
                  use_pallas="auto"):
-        if use_pallas is True:
-            raise NotImplementedError(
-                "TileMerger(use_pallas=True) needs the scatter-merge kernel K3, "
-                "which is still to be ported (ROADMAP.md queue 2)"
-            )
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TileMerger allocates its canvas on CUDA unless told otherwise, and "
+                    "torch.cuda.is_available() is false; pass device='cpu' to merge on the CPU"
+                )
+            device = torch.device("cuda", torch.cuda.current_device())
         self.image_height = int(image_shape[0])
         self.image_width = int(image_shape[1])
         self.channels = int(channels)
@@ -277,9 +316,15 @@ class TileMerger:
         """batch [B, C, th, tw]; crop_coords [B, 4] of (x, y, w, h)."""
         if len(batch) != len(crop_coords):
             raise ValueError("Number of images in batch does not correspond to number of coordinates")
-        batch = torch.as_tensor(batch).to(device=self.image.device, dtype=self.image.dtype)
         coords = np.asarray(crop_coords)
         coords_yx = coords[:, [1, 0]].astype(np.int64)
+        batch = torch.as_tensor(batch).to(device=self.image.device)
+        if self.use_pallas is True:
+            if batch.dtype not in (torch.float32, torch.bfloat16):
+                batch = batch.to(self.image.dtype)
+            scatter_merge(self.image, self.norm_mask, batch.contiguous(), coords_yx, self.weight)
+            return
+        batch = batch.to(self.image.dtype)
         th, tw = int(batch.shape[2]), int(batch.shape[3])
 
         first_call, self._touched = not self._touched, True

@@ -1,22 +1,29 @@
-"""Batched d4 test-time augmentation (counterpart of the d4 family of
+"""Test-time augmentation (counterpart of the d4 and multiscale families of
 ``pytorch_toolbelt_tpu/inference/tta.py``).
 
-All views stack along the batch axis so the model runs one batched forward.
-Tensors are NCHW; the d4 views need square images.
+d4: all views stack along the batch axis so the model runs one batched
+forward; the views need square images.  Multiscale: the model runs once per
+size offset, and the outputs are resized back and reduced.  Tensors are NCHW.
 """
 
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from ..nn.functional import resize_2d
 from . import functional as F
 
 __all__ = [
+    "MultiscaleTTA",
     "d4_image2mask",
     "d4_image_augment",
     "d4_image_augment_views",
     "d4_image_deaugment",
     "d4_image_deaugment_views",
+    "ms_image_augment",
+    "ms_image_deaugment",
+    "ms_labels_augment",
+    "ms_labels_deaugment",
     "split_into_chunks",
 ]
 
@@ -107,3 +114,100 @@ def d4_image_deaugment(image: torch.Tensor, reduction: MaybeStrOrCallable = "mea
 
 def d4_image2mask(model_fn: Callable, image: torch.Tensor) -> torch.Tensor:
     return d4_image_deaugment(model_fn(d4_image_augment(image)))
+
+
+# ---------------------------------------------------------------------------
+# Multi-scale family
+# ---------------------------------------------------------------------------
+
+
+def _offset_pair(offset) -> Tuple[int, int]:
+    return tuple(offset) if isinstance(offset, (tuple, list)) else (offset, offset)
+
+
+def ms_labels_augment(labels: torch.Tensor, size_offsets: List) -> List[torch.Tensor]:
+    return [labels] * len(size_offsets)
+
+
+def ms_image_augment(
+    image: torch.Tensor,
+    size_offsets: List[Union[int, Tuple[int, int]]],
+    mode: str = "bilinear",
+    align_corners: bool = False,
+) -> List[torch.Tensor]:
+    """One resized tensor per size offset (rows + r_off, cols + c_off); an
+    offset of 0 passes the image through."""
+    rows, cols = image.shape[2], image.shape[3]
+    augmented = []
+    for offset in size_offsets:
+        r_off, c_off = _offset_pair(offset)
+        if r_off == 0 and c_off == 0:
+            augmented.append(image)
+        else:
+            augmented.append(resize_2d(image, (rows + r_off, cols + c_off), mode=mode, align_corners=align_corners))
+    return augmented
+
+
+def ms_labels_deaugment(
+    logits: List[torch.Tensor], size_offsets: List, reduction: MaybeStrOrCallable = "mean"
+) -> torch.Tensor:
+    if len(logits) != len(size_offsets):
+        raise ValueError("Got a different number of images than size offsets")
+    return _deaugment_averaging(torch.stack(logits), reduction)
+
+
+def ms_image_deaugment(
+    images: List[torch.Tensor],
+    size_offsets: List[Union[int, Tuple[int, int]]],
+    reduction: MaybeStrOrCallable = "mean",
+    mode: str = "bilinear",
+    align_corners: bool = True,
+    stride: int = 1,
+) -> torch.Tensor:
+    """Resize each scale's output back to the original size, (rows -
+    r_off // stride, cols - c_off // stride) for an output at ``stride``,
+    and reduce.  Note the default ``align_corners=True``, where augment
+    defaults to False, as in the JAX package."""
+    if len(images) != len(size_offsets):
+        raise ValueError("Got a different number of images than size offsets")
+    deaugmented = []
+    for feature_map, offset in zip(images, size_offsets):
+        r_off, c_off = _offset_pair(offset)
+        if r_off == 0 and c_off == 0:
+            deaugmented.append(feature_map)
+        else:
+            rows, cols = feature_map.shape[2], feature_map.shape[3]
+            original = (rows - r_off // stride, cols - c_off // stride)
+            deaugmented.append(resize_2d(feature_map, original, mode=mode, align_corners=align_corners))
+    return _deaugment_averaging(torch.stack(deaugmented), reduction)
+
+
+class MultiscaleTTA:
+    """Run the model at several scales and reduce the de-scaled outputs.
+    ``deaugment_fn`` may be a dict keyed like the model's dict outputs."""
+
+    def __init__(
+        self,
+        model_fn: Callable,
+        size_offsets: List[int],
+        mode: str = "bilinear",
+        align_corners: bool = False,
+        augment_fn: Callable = ms_image_augment,
+        deaugment_fn: Union[Callable, Dict[str, Callable]] = ms_image_deaugment,
+    ):
+        self.model_fn = model_fn
+        self.size_offsets = size_offsets
+        self.mode = mode
+        self.align_corners = align_corners
+        self.augment_fn = augment_fn
+        self.deaugment_fn = deaugment_fn
+        self.keys = set(deaugment_fn.keys()) if isinstance(deaugment_fn, dict) else None
+
+    def __call__(self, x: torch.Tensor):
+        ms_inputs = self.augment_fn(x, size_offsets=self.size_offsets, mode=self.mode,
+                                    align_corners=self.align_corners)
+        ms_outputs = [self.model_fn(xi) for xi in ms_inputs]
+        if self.keys is None:
+            return self.deaugment_fn(ms_outputs, self.size_offsets)
+        return {key: self.deaugment_fn[key]([out[key] for out in ms_outputs], size_offsets=self.size_offsets)
+                for key in self.keys}

@@ -2,9 +2,12 @@
 
 from .conv_kernels import conv3x3, conv3x3_reference, fold_batchnorm, pack_conv3x3_weights
 from .sort import bitonic_sort_chunked, sort_reference, split_sort
-from .tile_merge import detect_regular_grid, grid_merge, grid_merge_reference
+from .tile_merge import accumulate_tiles, accumulate_tiles_reference, detect_regular_grid, grid_merge
+from .tile_merge import grid_merge_reference
 
 __all__ = [
+    "accumulate_tiles",
+    "accumulate_tiles_reference",
     "bitonic_sort_chunked",
     "conv3x3",
     "conv3x3_reference",

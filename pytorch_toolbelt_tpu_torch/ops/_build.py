@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``*.cu`` file under ``pytorch_toolbelt_tpu_torch/csrc/`` is compiled
-by ``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, which is loaded with :mod:`ctypes`.  The library's file name
+by ``nvcc`` for Hopper (``sm_90a``), one compiler process per file, all
+started together, and the objects are linked into one shared library with a
+plain C interface, which is loaded with :mod:`ctypes`.  The library's file name
 carries a hash of the sources and the flags, so an unchanged tree reuses an
 earlier build.  The build directory (``pytorch_toolbelt_tpu_torch/_build``)
 is listed in ``.gitignore``.
@@ -29,7 +30,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -38,6 +39,9 @@ _SIGNATURES = {
     # device, tiles, tiles_dtype, weight, out, out_dtype, norm_out, channels, th, tw,
     # ty, tx, sh, sw, out_h, out_w, off_y, off_x, normalize, eps, stream
     "ptt_grid_merge": (_I, [_I, _P, _I, _P, _P, _I, _P] + [_I] * 12 + [_F, _P]),
+    # device, canvas, norm, tiles, tiles_dtype, weight, coords, n_tiles, channels, height, width,
+    # th, tw, box_y0, box_x0, box_h, box_w, stream
+    "ptt_scatter_merge": (_I, [_I, _P, _P, _P, _I, _P, _P, _I, _I, _LL, _LL, _I, _I] + [_LL] * 4 + [_P]),
     # device, x, w, scale, bias, y, B, H, W, cin, cout, cin_pad, cout_pad, relu, stream
     "ptt_conv3x3_bf16": (_I, [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]),
     # rows, n -> 4-byte words of scratch
@@ -79,14 +83,29 @@ def build() -> Path:
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_name(out.name + ".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objects)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(compiles, procs)]
+        if all(rc == 0 for _, _, rc in results):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, proc.stdout + proc.stderr, proc.returncode))
+        out.with_name(out.name + ".log").write_text(
+            "".join(" ".join(cmd) + "\n" + text for cmd, text, _ in results))
+        failed = [(cmd, text, rc) for cmd, text, rc in results if rc != 0]
+        if failed:
+            cmd, text, rc = failed[0]
+            raise RuntimeError(f"nvcc failed with exit code {rc} ({cmd[-1]}):\n{text}")
+        os.replace(tmp, out)  # atomic: a concurrent build of the same sources is harmless
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build of the same sources is harmless
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

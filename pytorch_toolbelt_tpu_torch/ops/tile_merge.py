@@ -1,17 +1,22 @@
-"""Overlap-add merge of a complete regular tile grid (kernel K1).
+"""Weighted overlap-add of prediction tiles: the grid merge (kernel K1) and
+the scatter merge (kernel K3).
 
 Counterpart of ``pytorch_toolbelt_tpu/ops/tile_merge.py``.  The TPU package
 merges a grid with the Pallas gather kernel ``pallas_grid_merge``; here the
 same gather formulation is a CUDA kernel (``csrc/tile_merge.cu``) that also
 fuses the normalisation by the summed window and the crop of the margins, so
 tiled inference ends with one launch that writes each output element once.
+Its Pallas scatter kernel ``pallas_accumulate_tiles``, which adds a batch of
+tiles at arbitrary coordinates into a canvas in place, is the CUDA kernel
+``csrc/scatter_merge.cu``.
 
-Tiles are ``[N, K, th, tw]`` (NCHW per tile) in row-major grid order, the
-blend window is ``[th, tw]``, and the canvas is ``[K, H, W]``.
+Tiles are ``[N, K, th, tw]`` (NCHW per tile), the blend window is
+``[th, tw]``, the canvas is ``[K, H, W]`` and the norm ``[1, H, W]``.
 
-:func:`grid_merge` launches the kernel for CUDA tensors and runs
-:func:`grid_merge_reference` (torch slice-adds in tile order) for CPU
-tensors; on any other device it raises.
+:func:`grid_merge` and :func:`accumulate_tiles` launch their kernels for
+CUDA tensors and run :func:`grid_merge_reference` and
+:func:`accumulate_tiles_reference` (torch slice-adds in tile order) for CPU
+tensors; on any other device they raise.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -21,7 +26,13 @@ import torch
 
 from . import _build
 
-__all__ = ["detect_regular_grid", "grid_merge", "grid_merge_reference"]
+__all__ = [
+    "accumulate_tiles",
+    "accumulate_tiles_reference",
+    "detect_regular_grid",
+    "grid_merge",
+    "grid_merge_reference",
+]
 
 # Floor of the summed window before dividing (the JAX plan's float64 eps).
 NORM_EPS = float(np.finfo(np.float64).eps)
@@ -170,3 +181,99 @@ def grid_merge(
 
 
 grid_merge.launches = 0
+
+
+# Tiles per launch of the scatter merge (kMaxTiles in csrc/scatter_merge.cu):
+# their coordinates sit in the kernel's shared memory.
+MAX_TILES_PER_LAUNCH = 1024
+
+
+def _scatter_coords(canvas: torch.Tensor, norm: torch.Tensor, tiles: torch.Tensor, coords_yx, weight) -> np.ndarray:
+    """Check the geometry of a scatter merge; return the coordinates as an
+    int64 [N, 2] numpy array of (row, col)."""
+    if canvas.ndim != 3 or tuple(norm.shape) != (1, *canvas.shape[1:]):
+        raise ValueError(f"canvas must be [C, H, W] and norm [1, H, W], got {tuple(canvas.shape)}, {tuple(norm.shape)}")
+    if tiles.ndim != 4 or tiles.shape[1] != canvas.shape[0]:
+        raise ValueError(f"tiles must be [N, {canvas.shape[0]}, th, tw], got shape {tuple(tiles.shape)}")
+    if canvas.dtype != torch.float32 or norm.dtype != torch.float32:
+        raise TypeError(f"canvas and norm must be fp32, got {canvas.dtype} and {norm.dtype}")
+    n, _, th, tw = tiles.shape
+    if tuple(weight.shape) != (th, tw):
+        raise ValueError(f"weight must be [{th}, {tw}], got shape {tuple(weight.shape)}")
+    if torch.is_tensor(coords_yx):
+        coords_yx = coords_yx.detach().cpu().numpy()  # host coordinates spare this copy (and its sync)
+    coords = np.asarray(coords_yx, dtype=np.int64).reshape(-1, 2)
+    if len(coords) != n:
+        raise ValueError(f"{len(coords)} coordinates for {n} tiles")
+    h, w = canvas.shape[1:]
+    if n and ((coords < 0).any() or (coords[:, 0] + th > h).any() or (coords[:, 1] + tw > w).any()):
+        raise ValueError(f"tile coordinates run off the [{h}, {w}] canvas")
+    return coords
+
+
+def accumulate_tiles_reference(canvas, norm, tiles, coords_yx, weight):
+    """Plain version of :func:`accumulate_tiles`: fp32 slice-adds in tile
+    order (the product rounded, then the sum).  Updates and returns
+    ``(canvas, norm)``."""
+    coords = _scatter_coords(canvas, norm, tiles, coords_yx, weight)
+    th, tw = tiles.shape[2:]
+    w = weight.to(device=canvas.device, dtype=torch.float32)
+    for tile, (y, x) in zip(tiles, coords.tolist()):
+        canvas[:, y : y + th, x : x + tw] += tile.to(torch.float32) * w
+        norm[:, y : y + th, x : x + tw] += w
+    return canvas, norm
+
+
+def accumulate_tiles(canvas, norm, tiles, coords_yx, weight):
+    """Weighted scatter-add of a batch of tiles into ``canvas`` and ``norm``,
+    in place and in batch order: ``canvas[:, y:y+th, x:x+tw] += tile * w``,
+    ``norm[:, y:y+th, x:x+tw] += w``.
+
+    Args:
+        canvas: [C, H, W] fp32 accumulator, updated in place.
+        norm: [1, H, W] fp32 weight accumulator, updated in place.
+        tiles: [N, C, th, tw] fp32 or bf16 (bf16 is read as it is: it
+            converts to fp32 exactly).
+        coords_yx: [N, 2] (row, col) of each tile's top-left corner; any
+            coordinates inside the canvas, no alignment asked.  A numpy
+            array (or CPU tensor) is best: the wrapper checks them on the
+            host and copies them to the card without a sync.
+        weight: [th, tw] fp32 blend window.
+
+    Returns ``(canvas, norm)``.  Coordinates that run off the canvas raise.
+    CPU tensors take :func:`accumulate_tiles_reference`; CUDA tensors launch
+    the kernel (counted in ``accumulate_tiles.launches``), one launch per
+    ``MAX_TILES_PER_LAUNCH`` tiles.
+    """
+    if canvas.device.type == "cpu":
+        return accumulate_tiles_reference(canvas, norm, tiles, coords_yx, weight)
+    if canvas.device.type != "cuda":
+        raise ValueError(f"accumulate_tiles: unsupported device {canvas.device}")
+    coords = _scatter_coords(canvas, norm, tiles, coords_yx, weight)
+    if tiles.dtype not in _DTYPE_CODES or weight.dtype != torch.float32:
+        raise TypeError(f"accumulate_tiles takes fp32/bf16 tiles and an fp32 weight, got {tiles.dtype}, {weight.dtype}")
+    if any(t.device != canvas.device for t in (norm, tiles, weight)):
+        raise ValueError(f"accumulate_tiles: norm, tiles and weight must lie on {canvas.device}")
+    if not all(t.is_contiguous() for t in (canvas, norm, tiles, weight)):
+        raise ValueError("accumulate_tiles: canvas, norm, tiles and weight must be contiguous")
+    n, c, th, tw = tiles.shape
+    h, w = canvas.shape[1:]
+    lib = _build.library()
+    stream = _build.stream_of(canvas.device)
+    tile_bytes = c * th * tw * tiles.element_size()
+    for start in range(0, n, MAX_TILES_PER_LAUNCH):
+        chunk = np.ascontiguousarray(coords[start : start + MAX_TILES_PER_LAUNCH])
+        (y0, x0), (y1, x1) = chunk.min(0), chunk.max(0) + (th, tw)
+        # pinned host memory: the copy joins the stream and the host does not wait
+        chunk_dev = torch.from_numpy(chunk).pin_memory().to(canvas.device, non_blocking=True)
+        err = lib.ptt_scatter_merge(
+            canvas.device.index, canvas.data_ptr(), norm.data_ptr(), tiles.data_ptr() + start * tile_bytes,
+            _DTYPE_CODES[tiles.dtype], weight.data_ptr(), chunk_dev.data_ptr(), len(chunk), c, h, w, th, tw,
+            int(y0), int(x0), int(y1 - y0), int(x1 - x0), stream,
+        )
+        _build.check(err, "accumulate_tiles")
+        accumulate_tiles.launches += 1
+    return canvas, norm
+
+
+accumulate_tiles.launches = 0

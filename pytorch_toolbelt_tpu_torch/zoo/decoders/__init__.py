@@ -1,3 +1,4 @@
+from .fpn import FPNDecoder
 from .unet import UNetDecoder
 
-__all__ = ["UNetDecoder"]
+__all__ = ["FPNDecoder", "UNetDecoder"]

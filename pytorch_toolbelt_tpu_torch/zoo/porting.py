@@ -7,10 +7,18 @@ numpy arrays, so the port needs no jax, and fills the matching torch module:
 * conv kernel HWIO -> OIHW (``.transpose(3, 2, 0, 1)``), conv bias copied;
 * BatchNorm ``scale/bias`` -> ``weight/bias`` and ``batch_stats``
   ``mean/var`` -> ``running_mean/running_var``; GroupNorm ``scale/bias``.
+  A ``Normalization`` wrapper keeps its flax child scope (``BatchNorm_0``);
+  a plain ``nn.BatchNorm2d`` (the SENet's) sits directly under its name.
 
-Flax names submodules by class and creation order; the decoder creates its
-blocks coarsest stage first, so ``UNetDecoder_0/UnetBlock_0`` is the
-coarsest stage's block, which is also ``decoder.stages[0]`` here.
+Flax names submodules by class and creation order unless the module names
+them.  The UNet decoder creates its blocks coarsest stage first, so
+``UNetDecoder_0/UnetBlock_0`` is the coarsest stage's block, which is also
+``decoder.stages[0]`` here.  The SENet names its layers (``layer0_conv1``,
+``layer{s}_{i}/conv1``, ``.../se/se_fc1``).  The FPN decoder's convs are
+``Conv_0..Conv_{L-1}``, the laterals fine -> coarse, then one prediction conv
+per fused level, the second-coarsest first.  A grouped conv's kernel is HWIO
+with I = in / groups, and the same transpose gives torch's
+``[O, I / groups, kh, kw]``.
 """
 
 from typing import Callable, Dict, Iterator, Mapping, Tuple
@@ -21,7 +29,9 @@ from torch import nn
 
 from ..nn.normalization import Normalization
 from ..nn.unet import UnetBlock
+from .decoders.fpn import FPNDecoder
 from .decoders.unet import UNetDecoder
+from .encoders.senet import SENetBottleneck, SENetEncoder, SEModule
 from .encoders.unet import UnetEncoder
 from .heads.resize import ResizeHead
 from .models import EncoderDecoderModel, UNetSegmentationModel
@@ -54,6 +64,21 @@ def _children(module: nn.Module):
                 ("Conv_1", module.conv2), ("Normalization_1", module.norm2)]
     if isinstance(module, ResizeHead):
         return [("Conv_0", module.conv)]
+    if isinstance(module, SENetEncoder):
+        stem = [(f"layer0_{name}", child) for name, child in module.layer0.named_children()
+                if not isinstance(child, nn.ReLU)]
+        return stem + [(f"layer{s}_{i}", block) for s, stage in enumerate(module.stages, start=1)
+                       for i, block in enumerate(stage)]
+    if isinstance(module, SENetBottleneck):
+        children = [(name, getattr(module, name)) for name in ("conv1", "bn1", "conv2", "bn2", "conv3", "bn3")]
+        if module.downsample is not None:
+            children += [("downsample_conv", module.downsample[0]), ("downsample_bn", module.downsample[1])]
+        return children + [("se", module.se_module)]
+    if isinstance(module, SEModule):
+        return [("se_fc1", module.fc1), ("se_fc2", module.fc2)]
+    if isinstance(module, FPNDecoder):
+        convs = list(module.lateral) + [p for p in module.predict if isinstance(p, nn.Conv2d)]
+        return [(f"Conv_{i}", conv) for i, conv in enumerate(convs)]
     raise NotImplementedError(f"no flax layout known for {type(module).__name__}")
 
 
@@ -63,14 +88,16 @@ def _leaves(module: nn.Module, path: Tuple[str, ...]) -> Iterator[_Leaf]:
         if module.bias is not None:
             yield "params", path + ("bias",), module.bias, _same
         return
+    if isinstance(module, nn.BatchNorm2d):
+        yield "params", path + ("scale",), module.weight, _same
+        yield "params", path + ("bias",), module.bias, _same
+        yield "batch_stats", path + ("mean",), module.running_mean, _same
+        yield "batch_stats", path + ("var",), module.running_var, _same
+        return
     if isinstance(module, Normalization):
         norm = module.norm
         if isinstance(norm, nn.BatchNorm2d):
-            scope = path + ("BatchNorm_0",)
-            yield "params", scope + ("scale",), norm.weight, _same
-            yield "params", scope + ("bias",), norm.bias, _same
-            yield "batch_stats", scope + ("mean",), norm.running_mean, _same
-            yield "batch_stats", scope + ("var",), norm.running_var, _same
+            yield from _leaves(norm, path + ("BatchNorm_0",))
         elif isinstance(norm, nn.GroupNorm):
             scope = path + ("GroupNorm_0",)
             yield "params", scope + ("scale",), norm.weight, _same

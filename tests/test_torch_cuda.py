@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, TileMerger, tiled_apply_d4_tta
+from pytorch_toolbelt_tpu_torch.ops import accumulate_tiles, accumulate_tiles_reference
 from pytorch_toolbelt_tpu_torch.ops import conv3x3, conv3x3_reference, grid_merge, grid_merge_reference
 from pytorch_toolbelt_tpu_torch.ops import pack_conv3x3_weights
 from pytorch_toolbelt_tpu_torch.ops.conv_kernels import _unpack
@@ -106,6 +107,116 @@ def test_tile_merger_on_cuda_matches_cpu(dev):
         merger.integrate_batch(tiles.to(device), slicer.crops)
         results.append(merger.merge().cpu())
     torch.testing.assert_close(results[1], results[0], rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K3: the scatter merge
+# ---------------------------------------------------------------------------
+
+
+def _scatter_case(c, h, w, th, tw, coords, dtype, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    canvas = torch.rand(c, h, w, generator=gen).to(dev)
+    norm = torch.rand(1, h, w, generator=gen).to(dev)
+    tiles = torch.randn(len(coords), c, th, tw, generator=gen).to(dev, dtype)
+    weight = (torch.rand(th, tw, generator=gen) + 0.1).to(dev)
+    return canvas, norm, tiles, np.asarray(coords, dtype=np.int64), weight
+
+
+def _odd_coords(n, h, w, th, tw, seed):
+    rng = np.random.RandomState(seed)
+    return np.stack([rng.randint(0, h - th + 1, n), rng.randint(0, w - tw + 1, n)], axis=1)
+
+
+_SCATTER_CASES = {
+    # 32 tiles of a 512/256 grid in one batch: up to four overlap at a pixel
+    "overlapping": (3, 1280, 1536, 512, 512, [(y, x) for y in (0, 256, 512, 768) for x in range(0, 1025, 128)][:32]),
+    "misaligned": (5, 1001, 999, 301, 257, _odd_coords(13, 1001, 999, 301, 257, seed=1)),
+    "one_tile": (19, 700, 900, 512, 512, [(101, 333)]),
+    "long_batch": (2, 300, 300, 40, 40, _odd_coords(1500, 300, 300, 40, 40, seed=2)),  # two launches
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(_SCATTER_CASES))
+def test_scatter_merge_equals_reference_bit_for_bit(dev, case, dtype):
+    from pytorch_toolbelt_tpu_torch.ops.tile_merge import MAX_TILES_PER_LAUNCH
+
+    c, h, w, th, tw, coords = _SCATTER_CASES[case]
+    canvas, norm, tiles, coords, weight = _scatter_case(c, h, w, th, tw, coords, dtype, dev)
+    want_c, want_n = accumulate_tiles_reference(canvas.clone(), norm.clone(), tiles, coords, weight)
+    before = accumulate_tiles.launches
+    got_c, got_n = accumulate_tiles(canvas, norm, tiles, coords, weight)
+    assert got_c is canvas and got_n is norm
+    assert accumulate_tiles.launches == before + -(-len(coords) // MAX_TILES_PER_LAUNCH)
+    assert torch.equal(got_c, want_c) and torch.equal(got_n, want_n)
+
+
+def test_scatter_merge_on_a_canvas_over_2_31_bytes(dev):
+    """[3, 16384, 16384] fp32 is 3 GiB: offsets pass 2^31 bytes and 2^29
+    elements; tiles land in the last channel's far corner too."""
+    c, h, w = 3, 16384, 16384
+    coords = [(0, 0), (16384 - 512, 16384 - 512), (16384 - 521, 100), (16384 - 512, 16384 - 700)]
+    canvas, norm, tiles, coords, weight = _scatter_case(c, h, w, 512, 512, coords, torch.bfloat16, dev, seed=3)
+    assert canvas.numel() * canvas.element_size() > 2**31
+    want_c, want_n = accumulate_tiles_reference(canvas.clone(), norm.clone(), tiles, coords, weight)
+    accumulate_tiles(canvas, norm, tiles, coords, weight)
+    assert torch.equal(canvas, want_c) and torch.equal(norm, want_n)
+
+
+def test_scatter_merge_rejects_what_the_kernel_does_not_take(dev):
+    canvas, norm, tiles, coords, weight = _scatter_case(2, 64, 64, 32, 32, [(0, 0), (8, 8)], torch.float32, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        accumulate_tiles(canvas, norm, tiles.transpose(2, 3), coords, weight)
+    with pytest.raises(ValueError, match="contiguous"):
+        accumulate_tiles(canvas.transpose(1, 2), norm, tiles, coords, weight)
+    with pytest.raises(ValueError, match="off the"):
+        accumulate_tiles(canvas, norm, tiles, [(0, 0), (40, 8)], weight)
+    with pytest.raises(ValueError, match="off the"):
+        accumulate_tiles(canvas, norm, tiles, [(0, -1), (8, 8)], weight)
+    with pytest.raises(ValueError, match="lie on"):
+        accumulate_tiles(canvas, norm, tiles, coords, weight.cpu())
+    with pytest.raises(TypeError):
+        accumulate_tiles(canvas, norm, tiles.half(), coords, weight)
+
+
+def test_tile_merger_scatter_path_on_cuda_matches_cpu(dev):
+    image = np.random.RandomState(9).random((300, 260, 3)).astype(np.float32)
+    slicer = ImageSlicer(image.shape, tile_size=64, tile_step=32, weight="pyramid")
+    tiles = torch.from_numpy(np.stack(slicer.split(image)).transpose(0, 3, 1, 2).copy()).to(torch.bfloat16)
+    results = []
+    for device in (torch.device("cpu"), dev):
+        merger = TileMerger(slicer.target_shape, channels=3, weight=slicer.weight, device=device, use_pallas=True)
+        before = accumulate_tiles.launches
+        for start in range(0, len(tiles), 16):
+            merger.integrate_batch(tiles[start : start + 16].to(device), slicer.crops[start : start + 16])
+        assert accumulate_tiles.launches - before == (-(-len(tiles) // 16) if device.type == "cuda" else 0)
+        results.append((merger.image.cpu(), merger.norm_mask.cpu(), merger.merge().cpu()))
+    for got, want in zip(results[1], results[0]):
+        assert torch.equal(got, want)
+
+
+def test_tile_merger_defaults_to_cuda(dev):
+    merger = TileMerger((64, 64), channels=2, weight=np.ones((32, 32)))
+    assert merger.image.device.type == "cuda" and merger.norm_mask.device.type == "cuda"
+    assert merger.weight.device.type == "cuda"
+
+
+def test_config3_model_on_cuda_matches_cpu(dev):
+    """SEResNeXt50-FPN(128) with 19 classes in fp32, TF32 off, on CUDA
+    against the CPU; the convolutions add in another order."""
+    from pytorch_toolbelt_tpu_torch.zoo import EncoderDecoderModel, FPNDecoder, ResizeHead, se_resnext50_encoder
+
+    torch.manual_seed(0)
+    encoder = se_resnext50_encoder()
+    decoder = FPNDecoder(encoder.get_output_spec(), out_channels=128)
+    model = EncoderDecoderModel(encoder, decoder, ResizeHead(decoder.get_output_spec(), num_classes=19)).eval()
+    x = torch.rand(2, 3, 96, 128)
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(dev)(x.to(dev)).cpu()
+    assert got.shape == (2, 19, 96, 128)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 def _pattern_model(device):

@@ -210,7 +210,7 @@ def test_tile_merger_matches_jax(split):
     jm.integrate_batch(jnp.asarray(tiles), slicer.crops)
     want = np.asarray(jm.merge())
 
-    tm = TileMerger(slicer.target_shape, channels=3, weight=slicer.weight)
+    tm = TileMerger(slicer.target_shape, channels=3, weight=slicer.weight, device="cpu")
     t_tiles = torch.from_numpy(tiles.transpose(0, 3, 1, 2).copy())
     step = split or len(tiles)
     for start in range(0, len(tiles), step):
@@ -218,11 +218,6 @@ def test_tile_merger_matches_jax(split):
     got = tm.merge()
     np.testing.assert_allclose(_hwc(got), want, atol=1e-5)
     np.testing.assert_allclose(slicer.crop_to_original_size(_hwc(got)), image, atol=1e-5)
-
-
-def test_tile_merger_scatter_kernel_not_ported():
-    with pytest.raises(NotImplementedError, match="K3"):
-        TileMerger((64, 64), channels=1, weight=np.ones((32, 32)), use_pallas=True)
 
 
 @pytest.mark.parametrize("n,batch", [(361, 64), (100, 32), (49, 16), (7, 8), (0, 4)])
