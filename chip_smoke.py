@@ -14,17 +14,24 @@ holds each against an independent plain path.  Weights and data are random,
 made from a seed.
 
 Phases, each printed on its own line:
-  1. the card's name and power limit; the kernel build and its time;
+  1. the card's name and power limit; the kernel build and its time; each
+     kernel's registers and spills; the HGMMA, UTMALDG and UBLKCP
+     instructions in the wgmma conv kernels' SASS (``cuobjdump``);
   2. K2 (conv3x3) against ``conv3x3_reference`` at every conv shape of
-     UNet-32 on 512^2 tiles; kernel and cuDNN times at the main path's
-     batch (64 tiles x 2 views);
+     UNet-32 on 512^2 tiles, through the route the UNet takes and through
+     the WMMA route; at the main path's batch (64 tiles x 2 views), per
+     shape: the kernel's ms and TFLOP/s, the WMMA kernel's, cuDNN plus the
+     eager epilogue, one ``F.conv2d``, and the shape's bound and what sets it;
   3. K1 (grid merge) against ``grid_merge_reference`` at the 5000^2
      geometry (361 tiles of 512^2, step 256, K = 1);
   4. ``fuse_unet_inference`` against the plain module in ``eval()``;
   5. ``tiled_apply_d4_tta`` on a 2048^2 image in both modes against the
-     plain path; both kernels' launch counters must rise;
-  6. one 5000^2 run in each mode at the bench batches, for its wall time
-     and peak memory (information only);
+     plain path; both kernels' launch counters must rise, and every conv
+     with C_in % 8 == 0 must take K2's TMA route;
+  6. one 5000^2 run in each mode at the bench batches, for its wall time,
+     peak memory and K2's launches by route; then the distributed run under
+     ``torch.profiler``: device idle share, K2's share and the top kernels
+     (information only);
   7. K4 (radix sort) and K5 (merge sort) against ``sort_reference``, keys
      and payloads bit for bit, at the Lovasz shapes of config 4 ([19, 2^23]
      forward and backward pairs, [152, 2^20] per image) and an odd shape
@@ -64,9 +71,12 @@ object describing the kernels; the last line is
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -184,35 +194,82 @@ def phase_build():
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s: {path.name}")
     log_file = path.with_name(path.name + ".log")
     if log_file.is_file():
-        for line in log_file.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[1]   ptxas: {line.strip()}")
+        for name, regs, spills in _ptxas_report(log_file.read_text()):
+            log(f"[1]   ptxas: {name}: {regs} registers, {spills} bytes of spill stores")
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    if not Path(cuobjdump).is_file():
+        log("[1] cuobjdump not found: the conv kernels' SASS is not inspected")
+    else:
+        sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, timeout=300).stdout
+        counts = _sass_counts(sass, "conv3x3_wgmma_kernel", ("HGMMA", "UTMALDG", "UBLKCP"))
+        log(f"[1] SASS of the {counts.pop('functions')} wgmma conv kernels (cuobjdump -sass): "
+            + ", ".join(f"{op} {n}" for op, n in counts.items()))
     return smi
 
 
-def phase_conv(dev):
+def _ptxas_report(text: str):
+    """(kernel, registers, spill-store bytes) for every entry function in a ``ptxas -v`` log."""
+    name = None
+    for line in text.splitlines():
+        match = re.search(r"Compiling entry function '(\S+)'", line)
+        if match:  # a mangled name: keep the kernel's name and its integer template arguments
+            name = match.group(1)
+            inner = re.search(r"(conv3x3_wgmma_kernel|conv3x3_kernel|[a-z_]+_kernel)(I(?:L[ib]\d+E)+)?", name)
+            if inner:
+                args = re.findall(r"L[ib](\d+)E", inner.group(2) or "")
+                name = inner.group(1) + (f"<{', '.join(args)}>" if args else "")
+            spills = 0
+        match = re.search(r"(\d+) bytes spill stores", line)
+        if match:
+            spills = int(match.group(1))
+        match = re.search(r"Used (\d+) registers", line)
+        if match and name:
+            yield name, int(match.group(1)), spills
+            name = None
+
+
+def _sass_counts(sass: str, function: str, ops) -> dict:
+    """Occurrences of each SASS opcode in the functions whose name holds ``function``."""
+    counts, inside, functions = dict.fromkeys(ops, 0), False, 0
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = function in line
+            functions += inside
+        elif inside:
+            for op in ops:
+                counts[op] += bool(re.search(rf"\b{op}\b", line))
+    return {"functions": functions, **counts}
+
+
+def phase_conv(dev, smi):
+    """K2 at every conv shape of UNet-32: each route against its plain
+    version at batch 2, then the times at the main path's batch."""
     from pytorch_toolbelt_tpu_torch.ops import conv3x3, conv3x3_reference, pack_conv3x3_weights
-    from pytorch_toolbelt_tpu_torch.ops.conv_kernels import _unpack
+    from pytorch_toolbelt_tpu_torch.ops.conv_kernels import _pack_wmma, _route, _unpack
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    max_err, total_ms, total_cudnn_ms, total_ref_ms, total_gflop = 0.0, 0.0, 0.0, 0.0, 0.0
-    total_library_ms, total_bound_ms = 0.0, 0.0
+    max_err = 0.0
+    total = dict.fromkeys(("ms", "wmma_ms", "cudnn_ms", "library_ms", "plain_ms", "gflop"), 0.0)
+    bounds = {"bytes": 0.0, "operations": 0.0}
     timing_batch = 2 * DIST_BATCH
     for c_in, c_out, size, relu in unet_conv_shapes():
         w = torch.randn(c_out, c_in, 3, 3, device=dev, generator=gen) * (2.0 / (9 * c_in)) ** 0.5
-        packed = pack_conv3x3_weights(w)
-        w_bf = _unpack(packed, c_in, c_out).float()  # the bf16-rounded weights the kernel uses
+        packed, packed_wmma = pack_conv3x3_weights(w), _pack_wmma(w)
+        route = _route(packed, c_in)
+        w_bf = _unpack(packed, c_in, c_out).float()  # the bf16-rounded weights the kernels use
         scale = (1.0 + 0.1 * torch.randn(c_out, device=dev, generator=gen)) if relu else torch.ones(c_out, device=dev)
         bias = 0.1 * torch.randn(c_out, device=dev, generator=gen)
 
         x = torch.randn(2, c_in, size, size, device=dev, generator=gen).to(torch.bfloat16)
         x = x.contiguous(memory_format=torch.channels_last)
-        got = conv3x3(x, packed, scale, bias, relu=relu).float()
         ref = conv3x3_reference(x, w_bf, scale, bias, relu)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
         tol = CONV_TOL * float(ref.abs().max())
-        ok = bool(torch.isfinite(got).all()) and err <= tol
+        errs = {}
+        for name, wp in ((route, packed), ("wmma", packed_wmma)):
+            got = conv3x3(x, wp, scale, bias, relu=relu).float()
+            torch.cuda.synchronize()
+            errs[name] = float((got - ref).abs().max()) if bool(torch.isfinite(got).all()) else float("inf")
+        err = errs[route]
         max_err = max(max_err, err)
 
         xb = torch.randn(timing_batch, c_in, size, size, device=dev, generator=gen).to(torch.bfloat16)
@@ -227,27 +284,36 @@ def phase_conv(dev):
         w_folded = (w_bf * scale[:, None, None, None]).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         b_folded = bias.to(torch.bfloat16)
 
-        ms = cuda_ms(lambda: conv3x3(xb, packed, scale, bias, relu=relu), reps=3)
+        ms = cuda_ms(lambda: conv3x3(xb, packed, scale, bias, relu=relu), reps=5)
+        wmma_ms = cuda_ms(lambda: conv3x3(xb, packed_wmma, scale, bias, relu=relu), reps=3)
         cudnn_ms = cuda_ms(cudnn, reps=3)
-        library_ms = cuda_ms(lambda: F.conv2d(xb, w_folded, b_folded, padding=1), reps=3)
-        ref_ms = cuda_ms(lambda: conv3x3_reference(xb, w_bf, scale, bias, relu), reps=1)
+        library_ms = cuda_ms(lambda: F.conv2d(xb, w_folded, b_folded, padding=1), reps=5)
+        plain_ms = cuda_ms(lambda: conv3x3_reference(xb, w_bf, scale, bias, relu), reps=1)
         gflop = 2.0 * timing_batch * size * size * 9 * c_in * c_out / 1e9
         nbytes = 2 * timing_batch * size * size * (c_in + c_out) + 2 * 9 * c_in * c_out + 8 * c_out
-        total_bound_ms += bound_ms(nbytes, gflop * 1e9)[0]
-        total_ms, total_cudnn_ms, total_ref_ms, total_gflop = (
-            total_ms + ms, total_cudnn_ms + cudnn_ms, total_ref_ms + ref_ms, total_gflop + gflop)
-        total_library_ms += library_ms
-        log(f"[2] conv3x3 {c_in:>3}->{c_out:<3} @{size:>3}^2 relu={int(relu)}: max|err| {err:.3e} <= {tol:.3e} "
-            f"{'ok' if ok else 'FAIL'}; batch {timing_batch}: kernel {ms:.3f} ms ({gflop / ms:.1f} TFLOP/s), "
-            f"cuDNN bf16 {cudnn_ms:.3f} ms (one F.conv2d {library_ms:.3f} ms), fp32 reference {ref_ms:.3f} ms")
+        bound, bound_by = bound_ms(nbytes, gflop * 1e9)
+        bounds[bound_by] += bound
+        for key, value in (("ms", ms), ("wmma_ms", wmma_ms), ("cudnn_ms", cudnn_ms), ("library_ms", library_ms),
+                           ("plain_ms", plain_ms), ("gflop", gflop)):
+            total[key] += value
+        ok = max(errs.values()) <= tol
+        log(f"[2] conv3x3 {c_in:>3}->{c_out:<3} @{size:>3}^2 relu={int(relu)} route {route}: max|err| {err:.3e} "
+            f"(wmma {errs['wmma']:.3e}) <= {tol:.3e} {'ok' if ok else 'FAIL'}; batch {timing_batch}: "
+            f"kernel {ms:.3f} ms ({gflop / ms:.1f} TFLOP/s), wmma {wmma_ms:.3f} ms, cuDNN + epilogue "
+            f"{cudnn_ms:.3f} ms, one F.conv2d {library_ms:.3f} ms, fp32 reference {plain_ms:.3f} ms; "
+            f"bound {bound:.3f} ms ({bound_by}) = {bound / ms:.1%} of the kernel")
         if not ok:
-            raise AssertionError(f"conv3x3 {c_in}->{c_out} @{size} disagrees with conv3x3_reference")
+            raise AssertionError(f"conv3x3 {c_in}->{c_out} @{size} disagrees with conv3x3_reference: {errs}")
         del xb, w_cudnn, w_folded
-    log(f"[2] conv3x3 all shapes, batch {timing_batch}: kernel {total_ms:.2f} ms ({total_gflop / total_ms:.1f} "
-        f"TFLOP/s), cuDNN bf16 {total_cudnn_ms:.2f} ms (one F.conv2d per shape {total_library_ms:.2f} ms), "
-        f"fp32 reference {total_ref_ms:.2f} ms; bound {total_bound_ms:.2f} ms (operations at the bf16 peak)")
-    return {"max_abs_err": max_err, "ms": total_ms, "plain_ms": total_ref_ms, "bound_ms": total_bound_ms,
-            "bound_by": "operations", "library_ms": total_library_ms}
+    bound_total = bounds["bytes"] + bounds["operations"]
+    bound_by = max(bounds, key=bounds.get)
+    log(f"[2] conv3x3 all shapes, batch {timing_batch}: kernel {total['ms']:.2f} ms "
+        f"({total['gflop'] / total['ms']:.1f} TFLOP/s), wmma {total['wmma_ms']:.2f} ms, cuDNN + epilogue "
+        f"{total['cudnn_ms']:.2f} ms, one F.conv2d per shape {total['library_ms']:.2f} ms, fp32 reference "
+        f"{total['plain_ms']:.2f} ms; bound {bound_total:.2f} ms (bytes {bounds['bytes']:.2f}, operations "
+        f"{bounds['operations']:.2f}) ({smi})")
+    return {"max_abs_err": max_err, "ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": bound_total,
+            "bound_by": bound_by, "library_ms": total["library_ms"]}
 
 
 def phase_merge(dev):
@@ -359,7 +425,7 @@ def phase_tiled(model, fused, dev):
     runs = (("distributed", DIST_BATCH), ("full", FULL_BATCH))
 
     torch.cuda.synchronize()
-    conv3x3.launches = 0
+    _reset_conv_counts()
     grid_merge.launches = 0
     outs, walls = {}, {}
     for mode, batch in runs:
@@ -367,10 +433,12 @@ def phase_tiled(model, fused, dev):
         outs[mode] = tiled_apply_d4_tta(fused, image, TILE, STEP, weight="pyramid", batch_size=batch, mode=mode)
         torch.cuda.synchronize()
         walls[mode] = time.perf_counter() - t0
-    launches = {"conv3x3": conv3x3.launches, "grid_merge": grid_merge.launches}
+    launches = {"conv3x3": conv3x3.launches, "grid_merge": grid_merge.launches,
+                "conv3x3_by_route": dict(conv3x3.launches_by_route)}
     log(f"[5] main path launches: {launches}")
-    if min(launches.values()) == 0:
+    if min(conv3x3.launches, grid_merge.launches) == 0:
         raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+    _check_conv_routes("[5] 2048^2 runs")
 
     for mode, batch in runs:
         got = outs[mode].float()
@@ -385,14 +453,36 @@ def phase_tiled(model, fused, dev):
     return launches
 
 
+def _reset_conv_counts():
+    from pytorch_toolbelt_tpu_torch.ops import conv3x3
+
+    conv3x3.launches = 0
+    for route in conv3x3.launches_by_route:
+        conv3x3.launches_by_route[route] = 0
+
+
+def _check_conv_routes(what: str):
+    """UNet-32's forward has one conv with C_in % 8 != 0 (the 3-channel stem,
+    the load route) and 14 with C_in % 8 == 0, which must all take TMA."""
+    from pytorch_toolbelt_tpu_torch.ops import conv3x3
+
+    by_route = conv3x3.launches_by_route
+    if by_route["wmma"] or not by_route["ld_wgmma"] or by_route["tma_wgmma"] != 14 * by_route["ld_wgmma"]:
+        raise AssertionError(f"{what}: K2 launches by route {by_route}, expected 14 tma_wgmma per ld_wgmma")
+
+
 def phase_full_size(fused, dev, smi):
+    from torch.profiler import ProfilerActivity, profile
+
     from pytorch_toolbelt_tpu_torch.inference import tiled_apply_d4_tta
+    from pytorch_toolbelt_tpu_torch.ops import conv3x3
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     image = torch.rand(3, 5000, 5000, device=dev, generator=gen)
     for mode, batch in (("distributed", DIST_BATCH), ("full", FULL_BATCH)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        _reset_conv_counts()
         t0 = time.perf_counter()
         out = tiled_apply_d4_tta(fused, image, TILE, STEP, weight="pyramid", batch_size=batch, mode=mode)
         torch.cuda.synchronize()
@@ -401,7 +491,26 @@ def phase_full_size(fused, dev, smi):
             raise AssertionError(f"5000^2 {mode} run gave a wrong shape or non-finite values")
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[6] tiled_apply_d4_tta 5000^2 {mode} batch={batch}: {wall:.3f} s, {25.0 / wall:.2f} MP/s, "
-            f"peak {peak:.2f} GiB allocated ({smi})")
+            f"peak {peak:.2f} GiB allocated; K2 launches by route {dict(conv3x3.launches_by_route)} ({smi})")
+        _check_conv_routes(f"[6] 5000^2 {mode}")
+        del out
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = tiled_apply_d4_tta(fused, image, TILE, STEP, weight="pyramid", batch_size=DIST_BATCH,
+                                 mode="distributed")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del out
+    busy, by_name = _device_busy_ms(prof), _device_ms_by_name(prof)
+    if busy == 0:
+        log("[6] profiled 5000^2 distributed run: device time not measured (the profiler saw no CUDA events)")
+        return
+    k2_ms = sum(ms for name, ms in by_name.items() if "conv3x3" in name)
+    log(f"[6] profiled 5000^2 distributed run: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+        f"(idle {1 - busy / wall_ms:.1%}), K2 {k2_ms:.1f} ms = {k2_ms / busy:.1%} of device time ({smi})")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[6]   device {ms:8.2f} ms  {name[:100]}")
 
 
 def _bits(t):
@@ -791,6 +900,15 @@ def _device_busy_ms(prof) -> float:
     return busy / 1e3
 
 
+def _device_ms_by_name(prof) -> dict:
+    """Device time in ms of each kernel or copy name a profile saw."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by_name
+
+
 def phase_streaming(dev, smi, model, model_bf16):
     """Streaming tiled inference of a 5000^2 image through K3, and the
     2048^2 bf16 run against the fp32 one."""
@@ -856,11 +974,7 @@ def phase_streaming(dev, smi, model, model_bf16):
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     del out
-    busy = _device_busy_ms(prof)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy, by_name = _device_busy_ms(prof), _device_ms_by_name(prof)
     k3_ms = sum(ms for name, ms in by_name.items() if "scatter_merge" in name)
     profile_line = "device time not measured (the profiler saw no CUDA events)"
     if busy > 0:
@@ -933,7 +1047,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     smi = phase_build()
-    conv = phase_conv(dev)
+    conv = phase_conv(dev, smi)
     merge = phase_merge(dev)
     model = seeded_unet(SEED, dev)
     fused = fuse_unet_inference(model)
@@ -951,8 +1065,9 @@ def main() -> int:
     phase_config3(dev, smi, model3, model3_bf16)
 
     kernels = [
-        {"name": "conv3x3", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/conv3x3.cu",
-         "replaces": "pytorch_toolbelt_tpu/ops/conv_kernels.py:153", "launches": launches["conv3x3"], **conv},
+        {"name": "conv3x3", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/conv3x3_wgmma.cuh",
+         "replaces": "pytorch_toolbelt_tpu/ops/conv_kernels.py:153", "launches": launches["conv3x3"], **conv,
+         "launches_by_route": launches["conv3x3_by_route"]},
         {"name": "grid_merge", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/tile_merge.cu",
          "replaces": "pytorch_toolbelt_tpu/ops/tile_merge.py:358", "launches": launches["grid_merge"], **merge},
         {"name": "scatter_merge", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/scatter_merge.cu",

@@ -1,8 +1,13 @@
 // 3x3 convolution, stride 1, zero ("SAME") padding, with the folded
-// BatchNorm / ReLU epilogue:  y = relu?(conv3x3(x, W) * scale + bias).
+// BatchNorm / ReLU epilogue:  y = relu?(conv3x3(x, W) * scale + bias),
+// through WMMA (mma.sync) for any C_in.
 //
-// Replaces the TPU kernel pytorch_toolbelt_tpu/ops/conv_kernels.py
-// `conv3x3_hcw` (`_conv_kernel`).
+// It was the port's first kernel for the TPU kernel
+// pytorch_toolbelt_tpu/ops/conv_kernels.py `conv3x3_hcw` (`_conv_kernel`),
+// which the wgmma kernel of conv3x3_wgmma.cuh now replaces on every path.
+// It stays as the "wmma" route, taken only by weights packed with the
+// private `_pack_wmma`: the yardstick chip_smoke.py times the wgmma kernel
+// against at every UNet shape.
 //
 // Layout: x [B, H, W, C_in] and y [B, H, W, C_out] bf16 (PyTorch's
 // channels_last storage of an NCHW tensor); W packed [9, C_in_pad, C_out_pad]
@@ -10,12 +15,7 @@
 // [C_out] fp32.  Accumulation is fp32.
 //
 // It is an implicit GEMM: M = output pixels, N = C_out, K = 9 * C_in.
-// What bounds it on the H100: per output pixel a layer does 18 * C_in * C_out
-// FLOP against 2 * (C_in + C_out) bytes of compulsory traffic.  The UNet's
-// inner layers do 140-860 FLOP per byte, around or above the card's ridge of
-// ~295, so tensor-core throughput bounds them; the 3-channel stem and the
-// 1-class head do under 30 and are bound by memory bytes.  The design aims at
-// the tensor cores: one block computes BM = 64 consecutive output pixels of
+// One block computes BM = 64 consecutive output pixels of
 // one row for BN output channels.  For every chunk of CK = 16 input
 // channels it stages the three input rows it needs (with the one-pixel halo,
 // zero filled at the image border and beyond C_in) and the chunk's weights of
@@ -24,9 +24,8 @@
 // dx, so no im2col buffer is ever written.  The products run on the tensor
 // cores through WMMA m16n16k16 bf16 with fp32 accumulators; the epilogue
 // applies scale, bias and ReLU in fp32 and stores bf16 with the N and W edges
-// masked.  BN is 32 when C_out <= 32 (the full-resolution layers), else 64.
-// K is padded to 16 inside the kernel, so the 3-channel stem needs no
-// separate path.  wgmma, TMA and multi-stage pipelining are left for later.
+// masked.  BN is 32 when C_out <= 32, else 64.  K is padded to 16 inside the
+// kernel, so any C_in works.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,9 +133,9 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int ptt_conv3x3_bf16(int device, const void* x, const void* w, const void* scale,
-                                const void* bias, void* y, int B, int H, int W, int cin, int cout,
-                                int cin_pad, int cout_pad, int relu, void* stream) {
+extern "C" int ptt_conv3x3_wmma_bf16(int device, const void* x, const void* w, const void* scale,
+                                     const void* bias, void* y, int B, int H, int W, int cin, int cout,
+                                     int cin_pad, int cout_pad, int relu, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int bn = cout <= 32 ? 32 : 64;

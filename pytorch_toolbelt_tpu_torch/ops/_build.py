@@ -43,7 +43,10 @@ _SIGNATURES = {
     # th, tw, box_y0, box_x0, box_h, box_w, stream
     "ptt_scatter_merge": (_I, [_I, _P, _P, _P, _I, _P, _P, _I, _I, _LL, _LL, _I, _I] + [_LL] * 4 + [_P]),
     # device, x, w, scale, bias, y, B, H, W, cin, cout, cin_pad, cout_pad, relu, stream
-    "ptt_conv3x3_bf16": (_I, [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]),
+    "ptt_conv3x3_wmma_bf16": (_I, [_I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P]),
+    # device, x, w, scale, bias, y, B, H, W, cin, cout, n_tile, relu, stream
+    "ptt_conv3x3_wgmma_bf16": (_I, [_I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
+    "ptt_conv3x3_wgmma_ld_bf16": (_I, [_I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
     # rows, n -> 4-byte words of scratch
     "ptt_radix_sort_workspace": (_LL, [_LL, _LL]),
     "ptt_merge_sort_workspace": (_LL, [_LL, _LL]),

@@ -17,7 +17,7 @@ from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, TileMerger, tiled_
 from pytorch_toolbelt_tpu_torch.ops import accumulate_tiles, accumulate_tiles_reference
 from pytorch_toolbelt_tpu_torch.ops import conv3x3, conv3x3_reference, grid_merge, grid_merge_reference
 from pytorch_toolbelt_tpu_torch.ops import pack_conv3x3_weights
-from pytorch_toolbelt_tpu_torch.ops.conv_kernels import _unpack
+from pytorch_toolbelt_tpu_torch.ops.conv_kernels import _pack_wmma, _route, _unpack
 from pytorch_toolbelt_tpu_torch.zoo import UNetSegmentationModel, fuse_unet_inference
 
 pytestmark = pytest.mark.cuda
@@ -54,6 +54,68 @@ def test_conv3x3_matches_reference(dev, c_in, c_out, h, w):
     assert float((got.float() - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
 
 
+def _conv_case(dev, c_in, c_out, b, h, w, relu, pack=pack_conv3x3_weights, seed=0):
+    """Runs K2 once and holds it against ``conv3x3_reference`` on the
+    bf16-rounded weights within 2e-2 * max|ref| (bf16 operands and output,
+    fp32 accumulation); returns the route it took."""
+    gen = torch.Generator().manual_seed(seed + c_in * 1000 + c_out)
+    x = torch.randn(b, c_in, h, w, generator=gen).to(torch.bfloat16)
+    weight = torch.randn(c_out, c_in, 3, 3, generator=gen) * (2.0 / (9 * c_in)) ** 0.5
+    scale, bias = 1.0 + 0.1 * torch.randn(c_out, generator=gen), 0.1 * torch.randn(c_out, generator=gen)
+    packed = pack(weight).to(dev)
+    taken = _route(packed, c_in)
+    x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    before = dict(conv3x3.launches_by_route)
+    got = conv3x3(x, packed, scale.to(dev), bias.to(dev), relu=relu)
+    assert {k: conv3x3.launches_by_route[k] - n for k, n in before.items()} == {k: int(k == taken) for k in before}
+    assert got.shape == (b, c_out, h, w) and got.is_contiguous(memory_format=torch.channels_last)
+    ref = conv3x3_reference(x, _unpack(packed, c_in, c_out), scale.to(dev), bias.to(dev), relu)
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
+    return taken
+
+
+# (C_in, C_out, relu) of the 15 convs of UNet-32 (channels 32/64/128/256, one class), in forward order
+_UNET32_CONVS = [(3, 32, 1), (32, 32, 1), (32, 64, 1), (64, 64, 1), (64, 128, 1), (128, 128, 1), (128, 256, 1),
+                 (256, 256, 1), (384, 128, 1), (128, 128, 1), (192, 64, 1), (64, 64, 1), (96, 32, 1), (32, 32, 1),
+                 (32, 1, 0)]
+
+
+@pytest.mark.parametrize("layer", range(len(_UNET32_CONVS)))
+def test_conv3x3_at_every_unet32_shape(dev, layer):
+    c_in, c_out, relu = _UNET32_CONVS[layer]
+    taken = _conv_case(dev, c_in, c_out, 2, 19, 70, bool(relu), seed=layer)
+    assert taken == ("tma_wgmma" if c_in % 8 == 0 else "ld_wgmma")
+
+
+@pytest.mark.parametrize(
+    "c_in,c_out,b,h,w,relu",
+    [(64, 64, 1, 7, 130, True),  # W not a multiple of the 64-pixel tile row
+     (32, 32, 2, 9, 1, True),  # W = 1: the halo box is mostly off the image
+     (32, 32, 2, 1, 70, False),  # H = 1
+     (8, 16, 2, 12, 33, True),  # the smallest C_in a tensor map takes
+     (96, 32, 2, 10, 40, False),  # a ragged second 64-channel chunk
+     (32, 1, 2, 11, 65, False),  # C_out = 1: odd C_out, scalar stores
+     (128, 256, 1, 6, 66, True),  # C_out = 256: one full N tile
+     (64, 320, 1, 5, 67, True),  # C_out = 320: two N blocks
+     (16, 70, 2, 9, 11, True),  # C_out not a multiple of 8
+     (64, 128, 8, 64, 128, True),  # more tiles than SMs: streamed weights wrap their ring
+     (32, 32, 4, 96, 128, True),  # more tiles than SMs with resident weights
+     (3, 32, 2, 20, 70, True),  # the load route
+     (20, 70, 2, 9, 11, False),
+     (12, 48, 3, 33, 65, True),
+     (100, 40, 1, 8, 70, True)],  # the load route over two chunks
+)
+def test_conv3x3_tiling_edges(dev, c_in, c_out, b, h, w, relu):
+    taken = _conv_case(dev, c_in, c_out, b, h, w, relu)
+    assert taken == ("tma_wgmma" if c_in % 8 == 0 else "ld_wgmma")
+
+
+@pytest.mark.parametrize("c_in,c_out", [(3, 32), (32, 32), (96, 32), (20, 70)])
+def test_conv3x3_wmma_route(dev, c_in, c_out):
+    assert _conv_case(dev, c_in, c_out, 2, 17, 70, True, pack=_pack_wmma) == "wmma"
+
+
 def test_conv3x3_rejects_what_the_kernel_does_not_take(dev):
     packed = pack_conv3x3_weights(torch.randn(16, 8, 3, 3)).to(dev)
     one, zero = torch.ones(16, device=dev), torch.zeros(16, device=dev)
@@ -66,6 +128,14 @@ def test_conv3x3_rejects_what_the_kernel_does_not_take(dev):
     x = nchw.contiguous(memory_format=torch.channels_last)
     with pytest.raises(ValueError):
         conv3x3(x, packed.cpu(), one, zero)
+    with pytest.raises(ValueError):  # packed for one 64-channel chunk, given two
+        conv3x3(torch.zeros(1, 72, 8, 8, device=dev, dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last), packed, one, zero)
+    base = torch.zeros(1 * 8 * 8 * 8 + 1, device=dev, dtype=torch.bfloat16)
+    shifted = base[1:].view(1, 8, 8, 8).permute(0, 3, 1, 2)  # channels_last, 2 bytes off 16-byte alignment
+    assert shifted.is_contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="aligned"):
+        conv3x3(shifted, packed, one, zero)
 
 
 def _grid(th, tw, sh, sw, ty, tx, k, seed, dtype, dev):

@@ -36,7 +36,7 @@ from pytorch_toolbelt_tpu_torch.ops import (
     grid_merge_reference,
     pack_conv3x3_weights,
 )
-from pytorch_toolbelt_tpu_torch.ops.conv_kernels import _unpack
+from pytorch_toolbelt_tpu_torch.ops.conv_kernels import _pack_wmma, _unpack
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -276,10 +276,24 @@ def test_conv3x3_borders_are_zero_padded():
 @pytest.mark.parametrize("c_in,c_out", [(3, 32), (96, 32), (32, 1), (384, 128), (20, 70)])
 def test_pack_conv3x3_weights_roundtrip(c_in, c_out):
     w = torch.from_numpy(np.random.RandomState(c_in).randn(c_out, c_in, 3, 3).astype(np.float32))
+    w_bf = w.to(torch.bfloat16)
+    # the wgmma routes' [NB, KC, 9, NT, 64] slabs, K-major, 128-byte swizzled
     packed = pack_conv3x3_weights(w)
-    assert packed.shape[1] % 16 == 0 and packed.shape[2] % 32 == 0
-    assert float(packed.float()[:, c_in:].abs().sum()) == 0 and float(packed.float()[:, :, c_out:].abs().sum()) == 0
-    torch.testing.assert_close(_unpack(packed, c_in, c_out).float(), w.to(torch.bfloat16).float(), rtol=0, atol=0)
+    nb, kc, taps, nt, ck = packed.shape
+    assert (taps, ck) == (9, 64) and kc == -(-c_in // 64) and nt in (8, 16, 32, 64, 128, 256)
+    assert nb * nt >= c_out and (nb - 1) * nt < c_out
+    assert int((packed != 0).sum()) == int((w_bf != 0).sum())  # the padding is zero
+    for n, k, ky, kx in ((0, 0, 0, 0), (c_out - 1, c_in - 1, 2, 1), (c_out // 2, c_in // 3, 1, 2)):
+        nbi, ni = divmod(n, nt)
+        kci, ki = divmod(k, 64)
+        column = ((ki // 8) ^ (ni % 8)) * 8 + ki % 8  # 16-byte group g of row n sits at g ^ (n % 8)
+        assert torch.equal(packed[nbi, kci, 3 * ky + kx, ni, column], w_bf[n, k, ky, kx])
+    torch.testing.assert_close(_unpack(packed, c_in, c_out).float(), w_bf.float(), rtol=0, atol=0)
+    # the WMMA route's [9, C_in_pad, C_out_pad], tap-major
+    wmma = _pack_wmma(w)
+    assert wmma.shape[1] % 16 == 0 and wmma.shape[2] % 32 == 0
+    assert float(wmma.float()[:, c_in:].abs().sum()) == 0 and float(wmma.float()[:, :, c_out:].abs().sum()) == 0
+    torch.testing.assert_close(_unpack(wmma, c_in, c_out).float(), w_bf.float(), rtol=0, atol=0)
 
 
 def test_fold_batchnorm_matches_jax():
