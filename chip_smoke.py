@@ -15,8 +15,10 @@ made from a seed.
 
 Phases, each printed on its own line:
   1. the card's name and power limit; the kernel build and its time; each
-     kernel's registers and spills; the HGMMA, UTMALDG and UBLKCP
-     instructions in the wgmma conv kernels' SASS (``cuobjdump``);
+     kernel's registers, static shared memory and spills; K4's pass kernel's
+     tile, dynamic shared memory and resident blocks per SM; the HGMMA,
+     UTMALDG and UBLKCP instructions in the wgmma conv kernels' SASS
+     (``cuobjdump``);
   2. K2 (conv3x3) against ``conv3x3_reference`` at every conv shape of
      UNet-32 on 512^2 tiles, through the route the UNet takes and through
      the WMMA route; at the main path's batch (64 tiles x 2 views), per
@@ -35,17 +37,23 @@ Phases, each printed on its own line:
   7. K4 (radix sort) and K5 (merge sort) against ``sort_reference``, keys
      and payloads bit for bit, at the Lovasz shapes of config 4 ([19, 2^23]
      forward and backward pairs, [152, 2^20] per image) and an odd shape
-     with planted ties, +-0.0 and NaN; ms and Gpairs/s of each;
+     with planted ties, +-0.0 and NaN; ms and Gpairs/s of each; for K4 per
+     case its spread, its launches per sort and each launch's time
+     (``torch.profiler``), its design's byte floor and GB/s; the inverse
+     permutation as Lovasz's backward scatters it;
   8. the config-4 loss suite at full size (logits [8, 19, 1024, 1024]):
      focal, dice, jaccard, Lovasz-Softmax on K4 and on K5, binary Lovasz,
      each value and gradient against a plain fp32 autograd path written
-     here; both sort counters must rise; ms per chained fwd+bwd step, peak
-     memory, GB/s against the card's own copy bandwidth, the sorts' share;
+     here; one sort launch per Lovasz step, and both sort counters must
+     rise; ms per chained fwd+bwd step, peak memory, GB/s against the card's
+     own copy bandwidth, the sort's and the scatter's shares; the Lovasz K4
+     step's device time by kernel (``torch.profiler``);
   9. K3 (scatter merge) against ``accumulate_tiles_reference``, bit for
      bit: the streaming batch (32 overlapping 512^2 tiles of 19 channels
      into the [19, 5120, 5120] canvas) in fp32 and bf16, a misaligned
-     geometry and one tile; ms, GB/s and bound of the bf16 batch, beside the
-     reference and an ``index_add_`` pair;
+     geometry and one tile; ms, GB/s and bound of the bf16 batch (the
+     kernel with its coordinates on the card, and through the wrapper),
+     beside the reference and an ``index_add_`` pair;
  10. streaming tiled inference of a 5000^2 uint8 RGB image: ImageSlicer
      (512, step 256, pyramid) -> batches of 32 host -> device ->
      SEResNeXt50-FPN(128) in bf16 -> ``TileMerger(use_pallas=True)`` (one K3
@@ -59,6 +67,8 @@ Phases, each printed on its own line:
      SEResNeXt50-FPN(128) on one 1024^2 image in bf16 against fp32; ms per
      call, MP/s, peak memory.
 
+Device times are medians over five windows of CUDA events; each phase
+prints the spread (min-max) of its kernel's windows beside the median.
 The kernels line gives, for every kernel, its time at the main path's shape
 beside its plain version's, one library call's where one computes the same
 function, and its bound: the larger of its compulsory bytes over 3.35 TB/s
@@ -69,10 +79,12 @@ object describing the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import ctypes
 import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -120,18 +132,36 @@ def bound_ms(nbytes: float, flops: float = 0.0, peak_flops: float = BF16_PEAK):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` in ms, between CUDA events."""
+class Timing(float):
+    """A device time in ms: the median over several windows, which also
+    keeps the fastest and the slowest window (``lo``, ``hi``)."""
+
+    def __new__(cls, windows):
+        self = super().__new__(cls, statistics.median(windows))
+        self.lo, self.hi = min(windows), max(windows)
+        return self
+
+    def __str__(self) -> str:
+        return f"{float(self):.3f} ms (min-max {self.lo:.3f}-{self.hi:.3f})"
+
+
+def cuda_ms(fn, reps: int = 5, warmup: int = 1, windows: int = 5) -> Timing:
+    """Device time of one call of ``fn`` in ms: the mean over ``reps`` calls
+    between CUDA events, in each of ``windows`` windows; their median and
+    spread."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return Timing(times)
 
 
 def unet_conv_shapes(channels=32, num_layers=4, num_classes=1, size=TILE):
@@ -194,8 +224,13 @@ def phase_build():
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.1f} s: {path.name}")
     log_file = path.with_name(path.name + ".log")
     if log_file.is_file():
-        for name, regs, spills in _ptxas_report(log_file.read_text()):
-            log(f"[1]   ptxas: {name}: {regs} registers, {spills} bytes of spill stores")
+        for name, regs, smem, spills in _ptxas_report(log_file.read_text()):
+            log(f"[1]   ptxas: {name}: {regs} registers, {smem} bytes of static shared memory, "
+                f"{spills} bytes of spill stores")
+    info = (ctypes.c_int * 4)()
+    _build.check(_build.library().ptt_radix_sort_pass_info(0, info), "ptt_radix_sort_pass_info")
+    log(f"[1] radix_pass_kernel: {info[0]} pairs per tile, {info[1]} threads, {info[2]} bytes of dynamic shared "
+        f"memory, {info[3]} blocks resident per SM")
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
     if not Path(cuobjdump).is_file():
         log("[1] cuobjdump not found: the conv kernels' SASS is not inspected")
@@ -208,7 +243,8 @@ def phase_build():
 
 
 def _ptxas_report(text: str):
-    """(kernel, registers, spill-store bytes) for every entry function in a ``ptxas -v`` log."""
+    """(kernel, registers, static shared-memory bytes, spill-store bytes) for
+    every entry function in a ``ptxas -v`` log."""
     name = None
     for line in text.splitlines():
         match = re.search(r"Compiling entry function '(\S+)'", line)
@@ -224,7 +260,8 @@ def _ptxas_report(text: str):
             spills = int(match.group(1))
         match = re.search(r"Used (\d+) registers", line)
         if match and name:
-            yield name, int(match.group(1)), spills
+            smem = re.search(r"(\d+) bytes smem", line)
+            yield name, int(match.group(1)), int(smem.group(1)) if smem else 0, spills
             name = None
 
 
@@ -299,7 +336,7 @@ def phase_conv(dev, smi):
         ok = max(errs.values()) <= tol
         log(f"[2] conv3x3 {c_in:>3}->{c_out:<3} @{size:>3}^2 relu={int(relu)} route {route}: max|err| {err:.3e} "
             f"(wmma {errs['wmma']:.3e}) <= {tol:.3e} {'ok' if ok else 'FAIL'}; batch {timing_batch}: "
-            f"kernel {ms:.3f} ms ({gflop / ms:.1f} TFLOP/s), wmma {wmma_ms:.3f} ms, cuDNN + epilogue "
+            f"kernel {ms} ({gflop / ms:.1f} TFLOP/s), wmma {wmma_ms:.3f} ms, cuDNN + epilogue "
             f"{cudnn_ms:.3f} ms, one F.conv2d {library_ms:.3f} ms, fp32 reference {plain_ms:.3f} ms; "
             f"bound {bound:.3f} ms ({bound_by}) = {bound / ms:.1%} of the kernel")
         if not ok:
@@ -347,7 +384,7 @@ def phase_merge(dev):
     nbytes = tiles.numel() * 4 + 5000 * 5000 * 4 + weight.numel() * 4
     bound, bound_by = bound_ms(nbytes)
     log(f"[3] grid_merge {ty * tx} tiles -> 5000^2: max|err| {err:.3e} <= {MERGE_TOL:.0e} {'ok' if ok else 'FAIL'}; "
-        f"kernel {ms:.3f} ms ({nbytes / ms / 1e6:.0f} GB/s of compulsory traffic), reference {ref_ms:.3f} ms; "
+        f"kernel {ms} ({nbytes / ms / 1e6:.0f} GB/s of compulsory traffic), reference {ref_ms:.3f} ms; "
         f"F.fold {fold_ms:.3f} ms (vs the kernel's canvas max|diff| {fold_err:.2e}); bound {bound:.3f} ms ({bound_by})")
     if not ok:
         raise AssertionError("grid_merge disagrees with grid_merge_reference")
@@ -527,8 +564,15 @@ def _sort_error(got, want, what: str, has_nan: bool) -> float:
     return max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
 
 
+def _short_kernel_name(name: str) -> str:
+    match = re.search(r"(radix_\w+_kernel|Memset[^)]*\))", name)
+    return match.group(1) if match else name[:40]
+
+
 def phase_sorts(dev, smi):
     """K4 and K5 against sort_reference at the Lovasz shapes of config 4."""
+    from torch.profiler import ProfilerActivity, profile
+
     from pytorch_toolbelt_tpu_torch.ops import bitonic_sort_chunked, sort_reference, split_sort
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -573,14 +617,33 @@ def phase_sorts(dev, smi):
         log(f"[7] sort {case} [{rows}, {cols}] {keys.dtype}/{payload.dtype}: keys and payloads equal "
             f"sort_reference bit for bit; {line} (library = one torch.sort(stable=True)); bound "
             f"{bound_ms(16 * rows * cols)[0]:.3f} ms (bytes) ({smi})")
+        # K4's own account: its design's bytes (the keys once for the histograms, then keys and
+        # payloads read and written once per pass) and what each launch of one sort took
+        design_bytes = 68 * rows * cols
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            bitonic_sort_chunked(keys, payload)
+            torch.cuda.synchronize()
+        ops = [(name, (end - start) / 1e3) for start, end, name in _device_events(prof)]
+        k4 = times["radix_sort", case]
+        launches = f"{len(ops)} launches per sort" if ops else "launches per sort not measured (no CUDA events)"
+        log(f"[7] radix_sort {case} [{rows}, {cols}]: {k4}; {launches}; design floor {design_bytes / 1e9:.2f} GB "
+            f"= {design_bytes / HBM_RATE * 1e3:.3f} ms at {HBM_RATE / 1e12:.2f} TB/s, {design_bytes / k4 / 1e6:.0f} GB/s "
+            f"of it; compulsory-bytes bound {bound_ms(16 * rows * cols)[0]:.3f} ms; torch.sort(stable=True) "
+            f"{times['library', case]} ({smi})")
+        if ops:
+            log("[7]   one sort under torch.profiler: " + ", ".join(
+                f"{_short_kernel_name(name)} {ms:.3f}" for name, ms in ops) + f" ms; sum {sum(ms for _, ms in ops):.3f} ms")
         if case == "bwd":
-            index = keys.long()  # the inverse permutation as a scatter, for information only
-            scattered = torch.empty_like(payload).scatter_(1, index, payload)
+            # the inverse permutation as Lovasz's backward applies it: a scatter, the int64 cast included
+            scattered = torch.empty_like(payload).scatter_(1, keys.long(), payload)
             if not torch.equal(scattered, want[1]):
                 raise AssertionError("scatter_ inverse permutation disagrees with the sort")
-            times["scatter", case] = cuda_ms(lambda: torch.empty_like(payload).scatter_(1, index, payload), reps=5)
-            log(f"[7] inverse permutation [{rows}, {cols}] as scatter_ (int64 index ready): "
-                f"{times['scatter', case]:.3f} ms vs radix_sort {times['radix_sort', case]:.3f} ms")
+            times["scatter", case] = cuda_ms(lambda: torch.empty_like(payload).scatter_(1, keys.long(), payload),
+                                             reps=5)
+            index = keys.long()
+            scatter_ready = cuda_ms(lambda: torch.empty_like(payload).scatter_(1, index, payload), reps=5)
+            log(f"[7] inverse permutation [{rows}, {cols}] as scatter_: {times['scatter', case]} with the int64 cast, "
+                f"{scatter_ready} with the int64 index ready; radix_sort {times['radix_sort', case]:.3f} ms")
             del index, scattered
         del keys, payload, want
     return times, errors
@@ -651,7 +714,9 @@ def _value_and_grad(fn, x0, target):
 
 def _chained_steps(fn, x0, target):
     """ms per step of LOSS_STEPS chained (value, gradient, x += 1e-4 * grad)
-    steps after one warm-up, and the peak memory allocated meanwhile."""
+    steps after one warm-up on the host's clock; the median and spread of
+    the steps between CUDA events recorded after each; the peak memory
+    allocated meanwhile."""
     def step(x):
         x = x.detach().requires_grad_(True)
         value = fn(x, target)
@@ -661,11 +726,40 @@ def _chained_steps(fn, x0, target):
     x = step(x0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(LOSS_STEPS + 1)]
     t0 = time.perf_counter()
-    for _ in range(LOSS_STEPS):
+    events[0].record()
+    for i in range(LOSS_STEPS):
         x = step(x)
+        events[i + 1].record()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / LOSS_STEPS * 1e3, torch.cuda.max_memory_allocated() / 2**30
+    wall = (time.perf_counter() - t0) / LOSS_STEPS * 1e3
+    steps = Timing([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+    return wall, steps, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _profile_loss_step(fn, x0, target, smi, steps: int = 2):
+    """Device time by kernel of ``steps`` chained loss steps under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = x0.detach()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            x = x.detach().requires_grad_(True)
+            fn(x, target).backward()
+            x = (x + 1e-4 * x.grad).detach()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    busy, by_name = _device_busy_ms(prof) / steps, _device_ms_by_name(prof)
+    if busy == 0:
+        log("[8]   profiled step: device time not measured (the profiler saw no CUDA events)")
+        return
+    log(f"[8]   profiled step ({steps} steps): wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+        f"(idle {1 - busy / wall_ms:.1%}) ({smi})")
+    for kernel, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[8]     device {ms / steps:8.3f} ms per step = {ms / steps / busy:6.1%}  {kernel[:90]}")
 
 
 def phase_losses(dev, smi, sort_times):
@@ -684,7 +778,7 @@ def phase_losses(dev, smi, sort_times):
     n_logits, n_int = logits.numel() * 4, t_int.numel() * 4
     copy_ms = cuda_ms(lambda: torch.empty_like(logits).copy_(logits), reps=10)
     copy_gbps = 2 * n_logits / copy_ms / 1e6
-    log(f"[8] logits {list(LOSS_SHAPE)} fp32: copy {copy_ms:.3f} ms = {copy_gbps:.0f} GB/s read+write ({smi})")
+    log(f"[8] logits {list(LOSS_SHAPE)} fp32: copy {copy_ms} = {copy_gbps:.0f} GB/s read+write ({smi})")
 
     softmax = lambda x: torch.softmax(x, 1)  # noqa: E731
     focal, ce_focal = L.BinaryFocalLoss(), L.CrossEntropyFocalLoss()
@@ -718,14 +812,14 @@ def phase_losses(dev, smi, sort_times):
             grad_err = float((grad - want_grad).abs().max())
             grad_tol = LOSS_GRAD_TOL * float(want_grad.abs().max())
             ok = bool(torch.isfinite(grad).all()) and value_err <= LOSS_VALUE_RTOL and grad_err <= grad_tol
-            ok = ok and sorts == (2 if "Lovasz" in name else 0)
+            ok = ok and sorts == (1 if "Lovasz" in name else 0)  # the forward's sort; the backward scatters
             log(f"[8] {name}: value {float(value):.7g} vs plain {float(want_value):.7g}, rel err {value_err:.2e} "
                 f"<= {LOSS_VALUE_RTOL:.0e}; grad max|err| {grad_err:.3e} <= {grad_tol:.3e}; sort launches {sorts} "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} disagrees with the plain path")
             del grad, want_grad
-            ms, peak = _chained_steps(port, x0, target)
+            ms, steps, peak = _chained_steps(port, x0, target)
         finally:
             lovasz.SPLIT_SORT = False
         extra = ""
@@ -734,10 +828,13 @@ def phase_losses(dev, smi, sort_times):
             extra = f", {gbps:.0f} GB/s of its byte floor = {gbps / copy_gbps:.1%} of the copy rate"
         if "Lovasz" in name and x0 is logits:
             sort = "merge_sort" if split else "radix_sort"
-            sort_ms = sort_times[sort, "fwd"] + sort_times[sort, "bwd"]
-            extra = (f", its two {sort} launches {sort_ms:.2f} ms = {sort_ms / ms:.1%} of the step "
-                     f"(scatter_ inverse permutation {sort_times['scatter', 'bwd']:.2f} ms)")
-        log(f"[8] {name}: {ms:.3f} ms per fwd+bwd step ({LOSS_STEPS} chained), peak {peak:.2f} GiB{extra}")
+            sort_ms, scatter_ms = sort_times[sort, "fwd"], sort_times["scatter", "bwd"]
+            extra = (f", its one {sort} launch {sort_ms:.2f} ms = {sort_ms / ms:.1%} of the step, the backward's "
+                     f"scatter_ (int64 cast included) {scatter_ms:.2f} ms = {scatter_ms / ms:.1%}")
+        log(f"[8] {name}: {ms:.3f} ms per fwd+bwd step ({LOSS_STEPS} chained; per step between CUDA events "
+            f"{steps}), peak {peak:.2f} GiB{extra}")
+        if name == "LovaszLoss(softmax) K4":
+            _profile_loss_step(port, x0, target, smi)
     launches = {"radix_sort": bitonic_sort_chunked.launches, "merge_sort": split_sort.launches}
     log(f"[8] loss suite launches: {launches}")
     if min(launches.values()) == 0:
@@ -780,6 +877,29 @@ def _scatter_cases(dev):
     yield "one tile bf16", canvas, norm, tiles[:1].to(torch.bfloat16), slicer.crops[middle : middle + 1, [1, 0]], weight
 
 
+def _scatter_merge_launch(canvas, norm, tiles, coords, weight):
+    """One K3 launch through the library's C entry point, with the batch's
+    coordinates copied to the card once, here: the kernel alone, without
+    the wrapper's host checks and coordinate copy."""
+    from pytorch_toolbelt_tpu_torch.ops import _build
+    from pytorch_toolbelt_tpu_torch.ops.tile_merge import _DTYPE_CODES
+
+    coords = np.ascontiguousarray(coords, dtype=np.int64)
+    (y0, x0), (y1, x1) = coords.min(0), coords.max(0) + tiles.shape[2:]
+    coords_dev = torch.from_numpy(coords).to(canvas.device)
+    lib, stream = _build.library(), _build.stream_of(canvas.device)
+    n, c, th, tw = tiles.shape
+    h, w = canvas.shape[1:]
+
+    def launch():
+        err = lib.ptt_scatter_merge(canvas.device.index, canvas.data_ptr(), norm.data_ptr(), tiles.data_ptr(),
+                                    _DTYPE_CODES[tiles.dtype], weight.data_ptr(), coords_dev.data_ptr(), n, c, h, w,
+                                    th, tw, int(y0), int(x0), int(y1 - y0), int(x1 - x0), stream)
+        _build.check(err, "ptt_scatter_merge")
+
+    return launch
+
+
 def phase_scatter(dev, smi):
     """K3 against accumulate_tiles_reference, bit for bit, at the streaming
     shapes; its time beside the reference, index_add_ and its bound."""
@@ -796,6 +916,13 @@ def phase_scatter(dev, smi):
             f"{list(canvas.shape)}: {'equals' if equal else 'DIFFERS FROM'} accumulate_tiles_reference bit for bit")
         if not equal:
             raise AssertionError(f"scatter_merge {name} disagrees with accumulate_tiles_reference (max|err| {err:.3e})")
+        # the C call that is timed below, with its coordinates on the card, on fresh buffers
+        got_c, got_n = canvas.clone(), norm.clone()
+        _scatter_merge_launch(got_c, got_n, tiles, coords, weight)()
+        torch.cuda.synchronize()
+        if not (torch.equal(got_c, want_c) and torch.equal(got_n, want_n)):
+            raise AssertionError(f"ptt_scatter_merge {name} with device coordinates disagrees with "
+                                 "accumulate_tiles_reference")
         del got_c, got_n, want_c, want_n
         if name != "stream bf16":
             continue
@@ -806,7 +933,8 @@ def phase_scatter(dev, smi):
         bound, bound_by = bound_ms(nbytes)
         copy_ms = cuda_ms(lambda: torch.empty_like(canvas).copy_(canvas), reps=5)
         copy_rate = 2 * canvas.numel() * 4 / copy_ms / 1e6  # bytes per ms -> GB/s
-        ms = cuda_ms(lambda: accumulate_tiles(canvas, norm, tiles, coords, weight), reps=10)
+        wrapper_ms = cuda_ms(lambda: accumulate_tiles(canvas, norm, tiles, coords, weight), reps=10)
+        ms = cuda_ms(_scatter_merge_launch(canvas, norm, tiles, coords, weight), reps=10)
         plain_ms = cuda_ms(lambda: accumulate_tiles_reference(canvas, norm, tiles, coords, weight), reps=3)
         ct = torch.as_tensor(coords, device=dev)
         ys = ct[:, 0, None, None] + torch.arange(th, device=dev)[None, :, None]
@@ -820,12 +948,13 @@ def phase_scatter(dev, smi):
             norm.view(-1).index_add_(0, nidx, wflat)
 
         library_ms = cuda_ms(index_add, reps=5)
-        log(f"[9] scatter_merge {name}: kernel {ms:.3f} ms = {nbytes / ms / 1e6:.0f} GB/s of its {nbytes / 1e9:.3f} GB "
-            f"({covered} covered pixels); accumulate_tiles_reference {plain_ms:.3f} ms; index_add_ pair (int64 "
+        log(f"[9] scatter_merge {name}: kernel with its coordinates on the card {ms} = {nbytes / ms / 1e6:.0f} GB/s "
+            f"of its {nbytes / 1e9:.3f} GB ({covered} covered pixels); through accumulate_tiles (host checks, pinned "
+            f"coordinate copy) {wrapper_ms}; accumulate_tiles_reference {plain_ms:.3f} ms; index_add_ pair (int64 "
             f"index ready, atomics) {library_ms:.3f} ms; bound {bound:.3f} ms at {HBM_RATE / 1e12:.2f} TB/s, "
             f"{nbytes / copy_rate / 1e6:.3f} ms at the measured copy rate {copy_rate:.0f} GB/s ({smi})")
         result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                  "library_ms": library_ms}
+                  "library_ms": library_ms, "wrapper_ms": wrapper_ms}
         del idx, nidx, wflat, pix
     return result
 
@@ -886,14 +1015,19 @@ def stream_tiled(forward, image, slicer, dev, use_pallas=True, keep=None):
     return merger, slicer.crop_to_original_size(merger.merge())
 
 
-def _device_busy_ms(prof) -> float:
-    """Union of the device intervals (kernels, copies) a profile saw, in ms."""
+def _device_events(prof) -> list:
+    """(start us, end us, name) of each kernel, copy and memset a profile saw
+    on the card, in the order they started; empty if it saw no CUDA events."""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+
+
+def _device_busy_ms(prof) -> float:
+    """Union of the device intervals (kernels, copies) a profile saw, in ms."""
     busy, end = 0.0, float("-inf")
-    for a, b in spans:
+    for a, b, _ in _device_events(prof):
         if b > end:
             busy += b - max(a, end)
             end = b
@@ -903,9 +1037,8 @@ def _device_busy_ms(prof) -> float:
 def _device_ms_by_name(prof) -> dict:
     """Device time in ms of each kernel or copy name a profile saw."""
     by_name = {}
-    for e in prof.events():
-        if e.device_type.name == "CUDA":
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for a, b, name in _device_events(prof):
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
     return by_name
 
 

@@ -32,6 +32,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -136,8 +138,8 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
 extern "C" int ptt_conv3x3_wmma_bf16(int device, const void* x, const void* w, const void* scale,
                                      const void* bias, void* y, int B, int H, int W, int cin, int cout,
                                      int cin_pad, int cout_pad, int relu, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const ptt::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   const int bn = cout <= 32 ? 32 : 64;
   if (B <= 0 || H <= 0 || W <= 0 || cin <= 0 || cout <= 0 || cin_pad % CK != 0 || cin_pad < cin ||
       cout_pad % bn != 0 || cout_pad < cout || (int64_t)B * H > 0x7fffffffLL)

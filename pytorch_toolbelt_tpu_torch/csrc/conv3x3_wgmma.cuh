@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int TW = 64;                 // output pixels per tile row: one m64 wgmma tile
@@ -742,8 +744,8 @@ cudaError_t launch(const CUtensorMap* maps, const Params& p, int grid, int smem,
 template <bool TMA>
 int conv3x3_wgmma(int device, const void* x, const void* w, const void* scale, const void* bias, void* y, int B,
                   int H, int W, int cin, int cout, int nt, int relu, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const ptt::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   if (B <= 0 || H <= 0 || W <= 0 || cin <= 0 || cout <= 0 || (TMA && cin % 8 != 0) ||
       (reinterpret_cast<uintptr_t>(x) & 15) != 0 || (reinterpret_cast<uintptr_t>(w) & 15) != 0)
     return (int)cudaErrorInvalidValue;
@@ -823,7 +825,7 @@ int conv3x3_wgmma(int device, const void* x, const void* w, const void* scale, c
   }
 
   int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   const int grid = p.tiles < sms ? p.tiles : sms;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

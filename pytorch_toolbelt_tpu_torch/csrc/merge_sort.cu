@@ -26,6 +26,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
 #include "sort_keys.cuh"
 
 namespace {
@@ -236,8 +237,8 @@ extern "C" long long ptt_merge_sort_workspace(long long rows, long long n) {
 // of any 4-byte type; workspace: ptt_merge_sort_workspace(rows, n) words.
 extern "C" int ptt_merge_sort(int device, const void* keys, const void* vals, void* keys_out, void* vals_out,
                               void* workspace, int key_kind, long long rows, long long n, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const ptt::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   if (rows <= 0 || n <= 0 || n > 0xffffffffLL) return (int)cudaErrorInvalidValue;
   const uint32_t* k = static_cast<const uint32_t*>(keys);
   const uint32_t* v = static_cast<const uint32_t*>(vals);

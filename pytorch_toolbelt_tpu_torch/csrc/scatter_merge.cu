@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -120,8 +122,8 @@ extern "C" int ptt_scatter_merge(int device, void* canvas, void* norm, const voi
                                  const void* weight, const void* coords, int n_tiles, int channels,
                                  long long height, long long width, int th, int tw, long long box_y0,
                                  long long box_x0, long long box_h, long long box_w, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const ptt::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   if (n_tiles <= 0 || n_tiles > kMaxTiles || channels <= 0 || th <= 0 || tw <= 0 || height <= 0 ||
       width <= 0 || box_y0 < 0 || box_x0 < 0 || box_h <= 0 || box_w <= 0 || box_y0 + box_h > height ||
       box_x0 + box_w > width)

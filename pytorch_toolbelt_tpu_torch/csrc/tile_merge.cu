@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 enum DType { kF32 = 0, kBF16 = 1 };
@@ -91,8 +93,8 @@ extern "C" int ptt_grid_merge(int device, const void* tiles, int tiles_dtype, co
                               void* out, int out_dtype, void* norm_out, int channels, int th, int tw,
                               int ty, int tx, int sh, int sw, int out_h, int out_w, int off_y,
                               int off_x, int normalize, float eps, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const ptt::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return (int)guard.error();
   if (channels <= 0 || th <= 0 || tw <= 0 || ty <= 0 || tx <= 0 || sh <= 0 || sw <= 0 ||
       out_h <= 0 || out_w <= 0 || off_y < 0 || off_x < 0)
     return (int)cudaErrorInvalidValue;

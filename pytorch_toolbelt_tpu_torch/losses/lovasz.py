@@ -2,13 +2,14 @@
 
 Counterpart of ``pytorch_toolbelt_tpu/losses/lovasz.py``, NCHW.  Every row
 of errors -- one per class, per image with ``per_image=True`` -- is sorted in
-one batched two-operand sort, ascending on ``-errors``: the forward sort
-carries a payload that packs (fg flag, position), and the backward applies
-the inverse permutation with a second sort keyed on the saved positions.  On
-CUDA both sorts run the hand-written K4 kernel
+one batched two-operand sort, ascending on ``-errors``, whose payload packs
+(fg flag, position).  The backward applies the inverse permutation with a
+scatter to the saved positions; the JAX package sorts a second time there,
+because the TPU has no element-granular scatter.  On CUDA the sort runs the
+hand-written K4 kernel
 (:func:`~pytorch_toolbelt_tpu_torch.ops.bitonic_sort_chunked`, a radix sort),
 or K5 (:func:`~pytorch_toolbelt_tpu_torch.ops.split_sort`) when
-``SPLIT_SORT`` is set; on CPU they run the plain ``torch.sort`` version.
+``SPLIT_SORT`` is set; on CPU it runs the plain ``torch.sort`` version.
 
 Ignored pixels are pushed to the END of the descending error order with a
 sentinel key and masked out of the cumulative sums, which gives the values
@@ -30,7 +31,7 @@ __all__ = ["BinaryLovaszLoss", "LovaszLoss", "binary_lovasz_hinge", "lovasz_soft
 _SENTINEL = -1e30  # invalid pixels sort below any finite error
 _FG_BIT = 30       # foreground flag packed above the 30-bit position field
 
-# Route both sorts through the K5 port (chunk sort, then merge) instead of
+# Route the sort through the K5 port (chunk sort, then merge) instead of
 # the K4 port (radix sort).  Both are stable and give identical results.
 SPLIT_SORT = False
 
@@ -53,8 +54,9 @@ def _lovasz_grad_terms(gt_sorted: torch.Tensor, valid_sorted: torch.Tensor) -> t
 
 class _LovaszDot(torch.autograd.Function):
     """Per-row Lovasz dot product: sort errors descending, dot with the
-    (detached) Lovasz-extension gradient.  [R, P] -> [R].  Two sorts in all:
-    the forward's, and the backward's inverse permutation."""
+    (detached) Lovasz-extension gradient.  [R, P] -> [R].  One sort, in the
+    forward; the backward scatters the sorted-domain weights back to their
+    pixels."""
 
     @staticmethod
     def forward(ctx, errors_masked, fg, hinge: bool):
@@ -83,7 +85,7 @@ class _LovaszDot(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         perm, w_eff = ctx.saved_tensors
-        _, w_unsorted = _sort2(perm, w_eff)  # the inverse permutation, as a sort
+        w_unsorted = torch.empty_like(w_eff).scatter_(-1, perm.long(), w_eff)  # the inverse permutation
         return ct[..., None] * w_unsorted, None, None
 
 

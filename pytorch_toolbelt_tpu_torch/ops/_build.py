@@ -53,6 +53,8 @@ _SIGNATURES = {
     # device, keys, payload, keys_out, payload_out, workspace, key_kind, rows, n, stream
     "ptt_radix_sort": (_I, [_I, _P, _P, _P, _P, _P, _I, _LL, _LL, _P]),
     "ptt_merge_sort": (_I, [_I, _P, _P, _P, _P, _P, _I, _LL, _LL, _P]),
+    # device, int[4] out: pairs per tile, threads per block, shared bytes per block, blocks per SM
+    "ptt_radix_sort_pass_info": (_I, [_I, _P]),
 }
 
 _lock = threading.Lock()

@@ -10,9 +10,12 @@ CUDA orders NaNs by their bit pattern instead; with one NaN pattern the two
 agree.)
 
 * :func:`bitonic_sort_chunked` (K4) -> ``csrc/radix_sort.cu``, a segmented
-  LSD radix sort (four 8-bit passes of histogram, scan and stable scatter).
-  The TPU kernel of the same name is a bitonic network because the TPU has no
-  element-granular scatter; Hopper has one.
+  LSD radix sort in one sweep per 8-bit digit: one histogram launch for all
+  four digit places, one launch of per-row digit bases, then four passes,
+  each a single launch that ranks a tile, finds its place in the row by
+  decoupled look-back and writes each digit's run coalesced (a memset and
+  six launches per sort).  The TPU kernel of the same name is a bitonic
+  network because the TPU has no element-granular scatter; Hopper has one.
 * :func:`split_sort` (K5) -> ``csrc/merge_sort.cu``, the TPU kernel's contract
   (sort each chunk, then merge across chunks): a shared-memory merge sort of
   4096-pair chunks, then rounds of stable merge-path merges.

@@ -351,26 +351,73 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+RADIX_TILE = 512 * 15  # pairs per tile of K4's pass kernel: kThreads * kItems in csrc/radix_sort.cu
+
+
 def _sorts():
     from pytorch_toolbelt_tpu_torch.ops import bitonic_sort_chunked, split_sort
 
     return {"K4": bitonic_sort_chunked, "K5": split_sort}
 
 
-@pytest.mark.parametrize("pair", [(torch.float32, torch.int32), (torch.int32, torch.float32)], ids=["f32_i32", "i32_f32"])
-@pytest.mark.parametrize("shape", [(1, 1), (1, 1000003), (19, 1 << 16), (152, 4099)])
-@pytest.mark.parametrize("kernel", ["K4", "K5"])
-def test_sort_kernels_equal_sort_reference(dev, kernel, shape, pair):
+def _sort_case(dev, kernel, keys, payload):
+    """Runs the kernel twice and holds both results against sort_reference, bit for bit."""
     from pytorch_toolbelt_tpu_torch.ops import sort_reference
 
     sort = _sorts()[kernel]
+    before = sort.launches
+    got = sort(keys, payload)
+    again = sort(keys, payload)
+    assert sort.launches == before + 2
+    want = sort_reference(keys, payload)
+    for out in (got, again):
+        assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(out, want))
+    return got
+
+
+@pytest.mark.parametrize("pair", [(torch.float32, torch.int32), (torch.int32, torch.float32)], ids=["f32_i32", "i32_f32"])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 1000003), (19, 1 << 16), (152, 4099), (4096, 17), (64, 1 << 20)])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_sort_kernels_equal_sort_reference(dev, kernel, shape, pair):
+    """(4096, 17): many short rows; (64, 2^20): K4 has far more tiles than
+    resident blocks, so its look-back crosses waves."""
     keys = _awkward_keys(*shape, pair[0], seed=shape[1]).to(dev)
     payload = _payload(*shape, pair[1], seed=shape[1]).to(dev)
-    before = sort.launches
-    got_k, got_p = sort(keys, payload)
-    assert sort.launches == before + 1
-    want_k, want_p = sort_reference(keys, payload)
-    assert torch.equal(_bits(got_k), _bits(want_k)) and torch.equal(_bits(got_p), _bits(want_p))
+    _sort_case(dev, kernel, keys, payload)
+
+
+@pytest.mark.parametrize("pair", [(torch.float32, torch.int32), (torch.int32, torch.float32)], ids=["f32_i32", "i32_f32"])
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_sort_kernels_at_the_radix_tile_edges(dev, kernel, offset, pair):
+    """Rows of one K4 tile less one pair, exactly one tile, one tile and one pair."""
+    n = RADIX_TILE + offset
+    keys = _awkward_keys(3, n, pair[0], seed=n).to(dev)
+    payload = _payload(3, n, pair[1], seed=n).to(dev)
+    _sort_case(dev, kernel, keys, payload)
+
+
+@pytest.mark.parametrize("key_dtype", [torch.float32, torch.int32], ids=["f32", "i32"])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_sort_kernels_keep_equal_keys_in_input_order(dev, kernel, key_dtype):
+    """Every key equal across five tiles and a ragged one: stability alone
+    orders the payload, which must come out as it went in."""
+    n = 5 * RADIX_TILE + 7
+    keys = torch.full((3, n), 3, dtype=key_dtype, device=dev)
+    payload = torch.arange(3 * n, dtype=torch.int32, device=dev).reshape(3, n)
+    got_k, got_p = _sort_case(dev, kernel, keys, payload)
+    assert torch.equal(got_p, payload) and torch.equal(got_k, keys)
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_sort_kernels_over_the_whole_int32_range(dev, kernel):
+    """int32 keys drawn from INT_MIN..INT_MAX, both extremes planted: every
+    bit of every digit place varies."""
+    gen = torch.Generator().manual_seed(21)
+    keys = torch.randint(-(2**31), 2**31, (5, 300007), generator=gen, dtype=torch.int64).to(torch.int32)
+    keys[:, :3] = torch.tensor([-(2**31), 2**31 - 1, 0], dtype=torch.int32)
+    payload = _payload(5, 300007, torch.float32, seed=21)
+    _sort_case(dev, kernel, keys.to(dev), payload.to(dev))
 
 
 @pytest.mark.parametrize("kernel", ["K4", "K5"])
@@ -462,7 +509,7 @@ def test_loss_on_cuda_matches_cpu(dev, case):
         value = loss(xi, y.to(device))
         value.backward()
         if device.type == "cuda" and "lovasz" in name:
-            assert bitonic_sort_chunked.launches == before + 2  # the forward sort and the backward's
+            assert bitonic_sort_chunked.launches == before + 1  # the forward's sort; the backward scatters
         results.append((value.detach().cpu(), xi.grad.cpu()))
     (want_v, want_g), (got_v, got_g) = results
     # CUDA reductions (sums, cumsums, softmax) add in another order than the CPU's
@@ -485,9 +532,46 @@ def test_lovasz_split_sort_route_on_cuda(dev):
             k4, k5 = bitonic_sort_chunked.launches, split_sort.launches
             value = LovaszLoss()(x, labels.to(dev))
             value.backward()
-            assert (split_sort.launches - k5, bitonic_sort_chunked.launches - k4) == ((2, 0) if split else (0, 2))
+            assert (split_sort.launches - k5, bitonic_sort_chunked.launches - k4) == ((1, 0) if split else (0, 1))
             values.append((value.detach(), x.grad))
         finally:
             lovasz.SPLIT_SORT = False
     # both sorts are stable and equal bit for bit, so the two routes agree exactly
     assert torch.equal(values[0][0], values[1][0]) and torch.equal(values[0][1], values[1][1])
+
+
+# ---------------------------------------------------------------------------
+# Every C entry point leaves the calling thread on the device it was on
+# ---------------------------------------------------------------------------
+
+
+def _launch_each_entry_point(name, dev):
+    gen = torch.Generator().manual_seed(5)
+    if name == "grid_merge":
+        tiles, weight, grid, _ = _grid(32, 32, 16, 16, 3, 4, k=2, seed=5, dtype=torch.float32, dev=dev)
+        grid_merge(tiles, weight, grid)
+    elif name == "scatter_merge":
+        accumulate_tiles(*_scatter_case(2, 64, 64, 32, 32, [(0, 0), (8, 8)], torch.float32, dev))
+    elif name in ("conv3x3_tma_wgmma", "conv3x3_ld_wgmma", "conv3x3_wmma"):
+        c_in = 3 if name == "conv3x3_ld_wgmma" else 16
+        pack = _pack_wmma if name == "conv3x3_wmma" else pack_conv3x3_weights
+        x = torch.randn(1, c_in, 8, 8, generator=gen).to(dev, torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        conv3x3(x, pack(torch.randn(8, c_in, 3, 3, generator=gen)).to(dev), torch.ones(8, device=dev),
+                torch.zeros(8, device=dev))
+    else:
+        keys, payload = torch.randn(2, 100, generator=gen).to(dev), torch.arange(200, dtype=torch.int32).to(dev)
+        _sorts()[name](keys, payload.reshape(2, 100))
+
+
+@pytest.mark.parametrize("name", ["grid_merge", "scatter_merge", "conv3x3_tma_wgmma", "conv3x3_ld_wgmma",
+                                  "conv3x3_wmma", "K4", "K5"])
+def test_entry_points_restore_the_current_device(dev, name):
+    """A launch on cuda:1 tensors from a thread on cuda:0 leaves it on cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        _launch_each_entry_point(name, other)
+        torch.cuda.synchronize(other)
+        assert torch.cuda.current_device() == 0

@@ -23,6 +23,8 @@ import torch
 from pytorch_toolbelt_tpu import losses as J
 from pytorch_toolbelt_tpu_torch import losses as T
 from pytorch_toolbelt_tpu_torch.losses import fused as t_fused
+from pytorch_toolbelt_tpu_torch.losses import lovasz as t_lovasz
+from pytorch_toolbelt_tpu_torch.ops import sort_reference
 
 RTOL, ATOL = 1e-5, 1e-6
 B, C, H, W = 2, 5, 16, 16
@@ -113,6 +115,42 @@ def test_binary_lovasz_matches_jax(per_image, ignore):
     j_loss = J.BinaryLovaszLoss(per_image=per_image, ignore_index=ignore)
     t_loss = T.BinaryLovaszLoss(per_image=per_image, ignore_index=ignore)
     _assert_parity(j_loss, t_loss, logits, [labels], [labels], channels_last=False)
+
+
+class _SortInverseLovaszDot(t_lovasz._LovaszDot):
+    """``_LovaszDot`` with the inverse permutation applied as the JAX package
+    applies it: a second sort, keyed on the saved positions."""
+
+    @staticmethod
+    def backward(ctx, ct):
+        perm, w_eff = ctx.saved_tensors
+        _, w_unsorted = sort_reference(perm, w_eff)
+        return ct[..., None] * w_unsorted, None, None
+
+
+@pytest.mark.parametrize("per_image", [False, True])
+@pytest.mark.parametrize("ignore", [None, 255])
+@pytest.mark.parametrize("kind", ["softmax", "hinge"])
+def test_lovasz_scatter_backward_equals_the_sort_inverse(kind, ignore, per_image, monkeypatch):
+    """The backward's scatter moves the same values to the same pixels as a
+    sort keyed on the permutation, so the gradients agree bit for bit."""
+    rng = _rng("lovasz_scatter", kind, ignore, per_image)
+    if kind == "softmax":
+        x = _nchw(_softmax_np(rng.standard_normal((B, H, W, C)).astype(np.float32)))
+        labels = torch.from_numpy(_labels(rng, C - 1, ignore))
+        loss = T.LovaszLoss(per_image=per_image, ignore=ignore)
+    else:
+        x = rng.standard_normal((B, H, W)).astype(np.float32)
+        labels = torch.from_numpy(_labels(rng, 2, ignore).astype(np.float32))
+        loss = T.BinaryLovaszLoss(per_image=per_image, ignore_index=ignore)
+    grads = []
+    for dot in (t_lovasz._LovaszDot, _SortInverseLovaszDot):
+        monkeypatch.setattr(t_lovasz, "_LovaszDot", dot)
+        xt = torch.from_numpy(x).requires_grad_(True)
+        loss(xt, labels).backward()
+        grads.append(xt.grad)
+    assert bool(grads[0].abs().sum() > 0)
+    assert torch.equal(grads[0], grads[1])
 
 
 # ---------------------------------------------------------------------------
