@@ -231,6 +231,10 @@ def phase_build():
     _build.check(_build.library().ptt_radix_sort_pass_info(0, info), "ptt_radix_sort_pass_info")
     log(f"[1] radix_pass_kernel: {info[0]} pairs per tile, {info[1]} threads, {info[2]} bytes of dynamic shared "
         f"memory, {info[3]} blocks resident per SM")
+    info = _merge_sort_info()
+    log(f"[1] merge_sort: {info[0]} pairs per chunk and per merge tile, {info[1]} threads, {info[2]} bytes of "
+        f"dynamic shared memory; blocks resident per SM: block_sort_kernel {info[3]}, merge_kernel {info[4]}; "
+        f"at most {info[5]} runs merged at once")
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
     if not Path(cuobjdump).is_file():
         log("[1] cuobjdump not found: the conv kernels' SASS is not inspected")
@@ -564,16 +568,64 @@ def _sort_error(got, want, what: str, has_nan: bool) -> float:
     return max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
 
 
+SORT_KERNEL = re.compile(r"::((?:radix_\w+|block_sort|partition|merge)_kernel)\b")  # K4's and K5's
+
+
 def _short_kernel_name(name: str) -> str:
-    match = re.search(r"(radix_\w+_kernel|Memset[^)]*\))", name)
+    match = SORT_KERNEL.search(name) or re.search(r"(Memset[^)]*\))", name)
     return match.group(1) if match else name[:40]
+
+
+def _merge_sort_info() -> list:
+    """K5's geometry (``ptt_merge_sort_info``): pairs per chunk, threads, dynamic shared bytes,
+    blocks per SM of the chunk sort and of the merge, most runs merged at once."""
+    from pytorch_toolbelt_tpu_torch.ops import _build
+
+    info = (ctypes.c_int * 6)()
+    _build.check(_build.library().ptt_merge_sort_info(0, info), "ptt_merge_sort_info")
+    return list(info)
+
+
+def _merge_sort_rounds(n: int, info) -> int:
+    """K5's merge rounds for a row of n pairs: the fewest that merge its chunks info[5] at a time."""
+    chunks, rounds, reach = -(-n // info[0]), 0, 1
+    while reach < chunks:
+        reach *= info[5]
+        rounds += 1
+    return rounds
+
+
+def _sort_account(name, sort, keys, payload, design_bytes, ms, library_ms, what, smi):
+    """One sort under torch.profiler: log its launches, each launch's ms and their sums by kernel, beside
+    the sort's median ``ms`` and the GB/s it reaches of its design's bytes; return the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sort(keys, payload)
+        torch.cuda.synchronize()
+    ops = [(_short_kernel_name(op), (end - start) / 1e3) for start, end, op in _device_events(prof)]
+    launches = f"{len(ops)} launches per sort" if ops else "launches per sort not measured (no CUDA events)"
+    log(f"[7] {name} {what}: {ms}; {launches}; design bytes {design_bytes / 1e9:.2f} GB "
+        f"= {design_bytes / HBM_RATE * 1e3:.3f} ms at {HBM_RATE / 1e12:.2f} TB/s, {design_bytes / ms / 1e6:.0f} GB/s "
+        f"of them; compulsory-bytes bound {bound_ms(keys.numel() * 16)[0]:.3f} ms; torch.sort(stable=True) "
+        f"{library_ms} ({smi})")
+    if ops:
+        by_kernel = {}
+        for op, op_ms in ops:
+            count, total = by_kernel.get(op, (0, 0.0))
+            by_kernel[op] = (count + 1, total + op_ms)
+        log("[7]   one sort under torch.profiler: " + ", ".join(f"{op} {op_ms:.3f}" for op, op_ms in ops)
+            + f" ms; sum {sum(op_ms for _, op_ms in ops):.3f} ms; by kernel: "
+            + ", ".join(f"{op} {count}x {total:.3f} ms" for op, (count, total) in by_kernel.items()))
+    return ops
 
 
 def phase_sorts(dev, smi):
     """K4 and K5 against sort_reference at the Lovasz shapes of config 4."""
-    from torch.profiler import ProfilerActivity, profile
-
     from pytorch_toolbelt_tpu_torch.ops import bitonic_sort_chunked, sort_reference, split_sort
+
+    merge_info = _merge_sort_info()
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     kernels = {"radix_sort": bitonic_sort_chunked, "merge_sort": split_sort}
@@ -617,22 +669,19 @@ def phase_sorts(dev, smi):
         log(f"[7] sort {case} [{rows}, {cols}] {keys.dtype}/{payload.dtype}: keys and payloads equal "
             f"sort_reference bit for bit; {line} (library = one torch.sort(stable=True)); bound "
             f"{bound_ms(16 * rows * cols)[0]:.3f} ms (bytes) ({smi})")
-        # K4's own account: its design's bytes (the keys once for the histograms, then keys and
-        # payloads read and written once per pass) and what each launch of one sort took
-        design_bytes = 68 * rows * cols
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            bitonic_sort_chunked(keys, payload)
-            torch.cuda.synchronize()
-        ops = [(name, (end - start) / 1e3) for start, end, name in _device_events(prof)]
-        k4 = times["radix_sort", case]
-        launches = f"{len(ops)} launches per sort" if ops else "launches per sort not measured (no CUDA events)"
-        log(f"[7] radix_sort {case} [{rows}, {cols}]: {k4}; {launches}; design floor {design_bytes / 1e9:.2f} GB "
-            f"= {design_bytes / HBM_RATE * 1e3:.3f} ms at {HBM_RATE / 1e12:.2f} TB/s, {design_bytes / k4 / 1e6:.0f} GB/s "
-            f"of it; compulsory-bytes bound {bound_ms(16 * rows * cols)[0]:.3f} ms; torch.sort(stable=True) "
-            f"{times['library', case]} ({smi})")
-        if ops:
-            log("[7]   one sort under torch.profiler: " + ", ".join(
-                f"{_short_kernel_name(name)} {ms:.3f}" for name, ms in ops) + f" ms; sum {sum(ms for _, ms in ops):.3f} ms")
+        # Each kernel's own account: its design's bytes and what each launch of one sort took.
+        # K4: the keys once for the histograms, then keys and payloads read and written once per
+        # pass; K5: keys and payloads read and written by the chunk sort and once per merge round.
+        what = f"{case} [{rows}, {cols}]"
+        _sort_account("radix_sort", bitonic_sort_chunked, keys, payload, 68 * rows * cols,
+                      times["radix_sort", case], times["library", case], what, smi)
+        rounds = _merge_sort_rounds(cols, merge_info)
+        ops = _sort_account("merge_sort", split_sort, keys, payload, 16 * (1 + rounds) * rows * cols,
+                            times["merge_sort", case], times["library", case], f"{what} ({rounds} merge rounds)", smi)
+        if len(ops) > 1 + 2 * rounds:  # its design: the chunk sort, then a partition and a merge per round
+            raise AssertionError(f"merge_sort {what}: {len(ops)} device operations, more than 1 + 2 * {rounds}")
+        log(f"[7] merge_sort {what}: {times['merge_sort', case] / times['library', case]:.2f}x one torch.sort"
+            f"(stable=True), {times['merge_sort', case] / times['radix_sort', case]:.2f}x radix_sort")
         if case == "bwd":
             # the inverse permutation as Lovasz's backward applies it: a scatter, the int64 cast included
             scattered = torch.empty_like(payload).scatter_(1, keys.long(), payload)
@@ -760,6 +809,14 @@ def _profile_loss_step(fn, x0, target, smi, steps: int = 2):
         f"(idle {1 - busy / wall_ms:.1%}) ({smi})")
     for kernel, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"[8]     device {ms / steps:8.3f} ms per step = {ms / steps / busy:6.1%}  {kernel[:90]}")
+    sort_kernels = {}
+    for kernel, ms in by_name.items():
+        match = SORT_KERNEL.search(kernel)
+        if match:
+            sort_kernels[match.group(1)] = sort_kernels.get(match.group(1), 0.0) + ms / steps
+    total = sum(sort_kernels.values())
+    log(f"[8]     the sort's kernels {total:.3f} ms per step = {total / busy:.1%}: "
+        + ", ".join(f"{kernel} {ms:.3f}" for kernel, ms in sort_kernels.items()))
 
 
 def phase_losses(dev, smi, sort_times):
@@ -820,21 +877,21 @@ def phase_losses(dev, smi, sort_times):
                 raise AssertionError(f"{name} disagrees with the plain path")
             del grad, want_grad
             ms, steps, peak = _chained_steps(port, x0, target)
+            extra = ""
+            if floor is not None:
+                gbps = floor / ms / 1e6
+                extra = f", {gbps:.0f} GB/s of its byte floor = {gbps / copy_gbps:.1%} of the copy rate"
+            if "Lovasz" in name and x0 is logits:
+                sort = "merge_sort" if split else "radix_sort"
+                sort_ms, scatter_ms = sort_times[sort, "fwd"], sort_times["scatter", "bwd"]
+                extra = (f", its one {sort} launch {sort_ms:.2f} ms = {sort_ms / ms:.1%} of the step, the "
+                         f"backward's scatter_ (int64 cast included) {scatter_ms:.2f} ms = {scatter_ms / ms:.1%}")
+            log(f"[8] {name}: {ms:.3f} ms per fwd+bwd step ({LOSS_STEPS} chained; per step between CUDA events "
+                f"{steps}), peak {peak:.2f} GiB{extra}")
+            if name.startswith("LovaszLoss(softmax)"):
+                _profile_loss_step(port, x0, target, smi)
         finally:
             lovasz.SPLIT_SORT = False
-        extra = ""
-        if floor is not None:
-            gbps = floor / ms / 1e6
-            extra = f", {gbps:.0f} GB/s of its byte floor = {gbps / copy_gbps:.1%} of the copy rate"
-        if "Lovasz" in name and x0 is logits:
-            sort = "merge_sort" if split else "radix_sort"
-            sort_ms, scatter_ms = sort_times[sort, "fwd"], sort_times["scatter", "bwd"]
-            extra = (f", its one {sort} launch {sort_ms:.2f} ms = {sort_ms / ms:.1%} of the step, the backward's "
-                     f"scatter_ (int64 cast included) {scatter_ms:.2f} ms = {scatter_ms / ms:.1%}")
-        log(f"[8] {name}: {ms:.3f} ms per fwd+bwd step ({LOSS_STEPS} chained; per step between CUDA events "
-            f"{steps}), peak {peak:.2f} GiB{extra}")
-        if name == "LovaszLoss(softmax) K4":
-            _profile_loss_step(port, x0, target, smi)
     launches = {"radix_sort": bitonic_sort_chunked.launches, "merge_sort": split_sort.launches}
     log(f"[8] loss suite launches: {launches}")
     if min(launches.values()) == 0:

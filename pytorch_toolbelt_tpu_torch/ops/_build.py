@@ -55,6 +55,9 @@ _SIGNATURES = {
     "ptt_merge_sort": (_I, [_I, _P, _P, _P, _P, _P, _I, _LL, _LL, _P]),
     # device, int[4] out: pairs per tile, threads per block, shared bytes per block, blocks per SM
     "ptt_radix_sort_pass_info": (_I, [_I, _P]),
+    # device, int[6] out: pairs per chunk, threads per block, shared bytes per block, blocks per SM
+    # of the chunk sort and of the merge, most runs merged at once
+    "ptt_merge_sort_info": (_I, [_I, _P]),
 }
 
 _lock = threading.Lock()

@@ -17,8 +17,13 @@ agree.)
   six launches per sort).  The TPU kernel of the same name is a bitonic
   network because the TPU has no element-granular scatter; Hopper has one.
 * :func:`split_sort` (K5) -> ``csrc/merge_sort.cu``, the TPU kernel's contract
-  (sort each chunk, then merge across chunks): a shared-memory merge sort of
-  4096-pair chunks, then rounds of stable merge-path merges.
+  (sort each chunk, then merge across chunks): one launch sorts each
+  8192-pair chunk in shared memory, then each merge round merges up to 32
+  sorted runs at once, in two launches: one finds each 8192-pair output
+  tile's exact split points in its runs (a bisection on the key bits, one
+  warp per tile), the other stages each tile's segments in shared memory and
+  merges them there.  ``ceil(log_32(ceil(N / 8192)))`` rounds: five launches
+  per sort at ``N = 2^23``.
 
 On a CPU tensor each wrapper runs :func:`sort_reference`; on a CUDA tensor
 it launches its kernel (counted in ``<wrapper>.launches``) or raises.  The

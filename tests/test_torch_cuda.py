@@ -437,6 +437,58 @@ def test_sort_kernels_keep_every_nan_last_and_in_order(dev, kernel):
     assert torch.equal(_bits(got_k).cpu(), _bits(want_k)) and torch.equal(got_p.cpu(), want_p)
 
 
+MERGE_CHUNK = 512 * 16  # pairs per chunk and per merge tile of K5: kThreads * kItems in csrc/merge_sort.cu
+MERGE_WAYS = 32  # most runs K5 merges at once: kMaxWays in csrc/merge_sort.cu
+_MERGE_EDGES = {  # row length: K5's merge rounds are 0, 0, 1, 1, 1, 2, 2, 2, 3
+    "C1-1": MERGE_CHUNK - 1, "C1": MERGE_CHUNK, "C1+1": MERGE_CHUNK + 1,
+    "C1k-1": MERGE_CHUNK * MERGE_WAYS - 1, "C1k": MERGE_CHUNK * MERGE_WAYS, "C1k+1": MERGE_CHUNK * MERGE_WAYS + 1,
+    "C1k2-1": MERGE_CHUNK * MERGE_WAYS**2 - 1, "C1k2": MERGE_CHUNK * MERGE_WAYS**2,
+    "C1k2+1": MERGE_CHUNK * MERGE_WAYS**2 + 1,
+}
+
+
+@pytest.mark.parametrize("pair", [(torch.float32, torch.int32), (torch.int32, torch.float32)], ids=["f32_i32", "i32_f32"])
+@pytest.mark.parametrize("edge", list(_MERGE_EDGES))
+def test_split_sort_at_its_merge_round_edges(dev, edge, pair):
+    """Rows of C1 +- 1 and C1 * k^r (+- 1) pairs: the chunk sort alone, then
+    one, two and three merge rounds, with a ragged last run and a ragged
+    last group of runs."""
+    n = _MERGE_EDGES[edge]
+    keys = _awkward_keys(2, n, pair[0], seed=n).to(dev)
+    payload = _payload(2, n, pair[1], seed=n).to(dev)
+    _sort_case(dev, "K5", keys, payload)
+
+
+@pytest.mark.parametrize("key_dtype", [torch.float32, torch.int32], ids=["f32", "i32"])
+def test_split_sort_keeps_one_tie_in_input_order_over_two_merge_rounds(dev, key_dtype):
+    """Every key equal over k + 4 chunks and a ragged one: two merge rounds
+    run and every partition boundary falls inside the tie, so the payload
+    must come out exactly as it went in."""
+    n = MERGE_CHUNK * (MERGE_WAYS + 4) + 5
+    keys = torch.full((2, n), -3, dtype=key_dtype, device=dev)
+    payload = torch.arange(2 * n, dtype=torch.int32, device=dev).reshape(2, n)
+    got_k, got_p = _sort_case(dev, "K5", keys, payload)
+    assert torch.equal(got_p, payload) and torch.equal(got_k, keys)
+
+
+@pytest.mark.parametrize("key_dtype", [torch.float32, torch.int32], ids=["f32", "i32"])
+@pytest.mark.parametrize("n", [MERGE_CHUNK * MERGE_WAYS, 3 * MERGE_CHUNK * MERGE_WAYS + 17], ids=["1round", "2rounds"])
+def test_split_sort_splits_inside_ties_that_span_every_run(dev, n, key_dtype):
+    """Keys of two values, both in every chunk: every k-way partition lands
+    inside a run of ties that spans all k runs of its group, so the run
+    index alone decides which run gives the tile its next pair.  The float
+    keys write the lower value as -0.0 and +0.0, which tie and keep their bits."""
+    gen = torch.Generator().manual_seed(n)
+    high = torch.rand(2, n, generator=gen) < 0.3
+    if key_dtype == torch.float32:
+        low = torch.where(torch.rand(2, n, generator=gen) < 0.5, torch.tensor(-0.0), torch.tensor(0.0))
+        keys = torch.where(high, torch.tensor(1.0), low)
+    else:
+        keys = torch.where(high, torch.tensor(7, dtype=torch.int32), torch.tensor(-7, dtype=torch.int32))
+    payload = torch.arange(2 * n, dtype=torch.int32).reshape(2, n)
+    _sort_case(dev, "K5", keys.to(dev), payload.to(dev))
+
+
 def test_sort_kernels_reject_non_contiguous(dev):
     keys = torch.zeros(8, 4, device=dev).t()
     payload = torch.zeros(4, 8, dtype=torch.int32, device=dev)
