@@ -16,22 +16,33 @@ made from a seed.
 Phases, each printed on its own line:
   1. the card's name and power limit; the kernel build and its time; each
      kernel's registers, static shared memory and spills; K4's pass kernel's
-     tile, dynamic shared memory and resident blocks per SM; the HGMMA,
-     UTMALDG and UBLKCP instructions in the wgmma conv kernels' SASS
-     (``cuobjdump``);
+     tile, dynamic shared memory and resident blocks per SM; K1's cell-route
+     block (threads, ring stages, dynamic shared memory, blocks per SM); the
+     HGMMA, UTMALDG and UBLKCP instructions in the wgmma conv kernels' SASS
+     and the UTMALDG, LDG, LDS and STG in K1's cell kernels' (``cuobjdump``);
   2. K2 (conv3x3) against ``conv3x3_reference`` at every conv shape of
      UNet-32 on 512^2 tiles, through the route the UNet takes and through
      the WMMA route; at the main path's batch (64 tiles x 2 views), per
      shape: the kernel's ms and TFLOP/s, the WMMA kernel's, cuDNN plus the
      eager epilogue, one ``F.conv2d``, and the shape's bound and what sets it;
   3. K1 (grid merge) against ``grid_merge_reference`` at the 5000^2
-     geometry (361 tiles of 512^2, step 256, K = 1);
+     geometry (361 fp32 tiles of 512^2, step 256, K = 1, crop offset
+     (60, 60)), bit for bit, in fp32 and bf16 output, normalized and as
+     (canvas, norm), on the cell route the geometry takes and on the
+     general route (the same tiles 4 bytes off a 16-byte boundary); per
+     output type the cell route's ms and spread, GB/s of its compulsory
+     bytes (the tile pixels inside the crop, the output, the weight) and
+     share of its bound, beside the general route, the plain version and
+     ``F.fold``; then the cell route, bit for bit and timed, at a crop
+     whose x-offset and width are not multiples of 4;
   4. ``fuse_unet_inference`` against the plain module in ``eval()``;
   5. ``tiled_apply_d4_tta`` on a 2048^2 image in both modes against the
-     plain path; both kernels' launch counters must rise, and every conv
-     with C_in % 8 == 0 must take K2's TMA route;
+     plain path; both kernels' launch counters must rise, every conv with
+     C_in % 8 == 0 must take K2's TMA route, and each call's one K1 launch
+     must take K1's cell route;
   6. one 5000^2 run in each mode at the bench batches, for its wall time,
-     peak memory and K2's launches by route; then the distributed run under
+     peak memory and K2's and K1's launches by route (K1: one, on the cell
+     route); then the distributed run under
      ``torch.profiler``: device idle share, K2's share and the top kernels
      (information only);
   7. K4 (radix sort) and K5 (merge sort) against ``sort_reference``, keys
@@ -81,6 +92,7 @@ object describing the kernels; the last line is
 
 import ctypes
 import json
+import math
 import os
 import re
 import shutil
@@ -99,7 +111,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 TILE, STEP = 512, 256
 DIST_BATCH, FULL_BATCH = 64, 16
 CONV_TOL = 2e-2  # bf16 operands and output, fp32 accumulation: relative to max|ref|
-MERGE_TOL = 1e-5  # fp32 sums in the same order as the reference
+MERGE_TOL = 0.0  # K1 sums in the reference's order with the same roundings: bit for bit
 # bf16 fused path against the fp32 plain path, relative to max|ref|: the activations are
 # rounded to bf16 (2^-9 relative) after each of the 15 convs and the errors compound
 PATH_TOL = 5e-2
@@ -235,13 +247,22 @@ def phase_build():
     log(f"[1] merge_sort: {info[0]} pairs per chunk and per merge tile, {info[1]} threads, {info[2]} bytes of "
         f"dynamic shared memory; blocks resident per SM: block_sort_kernel {info[3]}, merge_kernel {info[4]}; "
         f"at most {info[5]} runs merged at once")
+    info = (ctypes.c_int * 6)()
+    _build.check(_build.library().ptt_grid_merge_cell_info(0, 0, 0, TILE // STEP, TILE // STEP, info),
+                 "ptt_grid_merge_cell_info")
+    log(f"[1] grid_merge_cell_kernel at the main path's {(TILE // STEP) ** 2} covering tiles, fp32: {info[0]} threads "
+        f"(a producer warp), {info[1]} ring stages of {info[4]}x{info[5]}-pixel boxes, {info[2]} bytes of dynamic "
+        f"shared memory, {info[3]} blocks resident per SM")
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
     if not Path(cuobjdump).is_file():
-        log("[1] cuobjdump not found: the conv kernels' SASS is not inspected")
+        log("[1] cuobjdump not found: the conv and grid-merge kernels' SASS is not inspected")
     else:
         sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, timeout=300).stdout
         counts = _sass_counts(sass, "conv3x3_wgmma_kernel", ("HGMMA", "UTMALDG", "UBLKCP"))
         log(f"[1] SASS of the {counts.pop('functions')} wgmma conv kernels (cuobjdump -sass): "
+            + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        counts = _sass_counts(sass, "grid_merge_cell_kernel", ("UTMALDG", "LDG", "LDS", "STG"))
+        log(f"[1] SASS of the {counts.pop('functions')} grid_merge_cell_kernel instances (cuobjdump -sass): "
             + ", ".join(f"{op} {n}" for op, n in counts.items()))
     return smi
 
@@ -357,7 +378,22 @@ def phase_conv(dev, smi):
             "bound_by": bound_by, "library_ms": total["library_ms"]}
 
 
-def phase_merge(dev):
+def merge_bytes(grid, tile_hw, out_hw, offset, channels, in_size, out_size) -> int:
+    """K1's compulsory bytes: each tile pixel that lands in the crop read once,
+    the output written once, the weight read once."""
+    (ty, tx, sh, sw), (th, tw) = grid, tile_hw
+
+    def inside(n, t, s, lo, size):  # the tiles' rows (columns) inside [lo, lo + size), summed over the tiles
+        return sum(max(0, min(i * s + t, lo + size) - max(i * s, lo)) for i in range(n))
+
+    pixels = inside(ty, th, sh, offset[0], out_hw[0]) * inside(tx, tw, sw, offset[1], out_hw[1])
+    return pixels * channels * in_size + channels * out_hw[0] * out_hw[1] * out_size + th * tw * 4
+
+
+def phase_merge(dev, smi):
+    """K1 at phase 3's shape: each output type bit for bit against the plain
+    version on both routes, and timed on the cell route beside the general
+    route, F.fold and the plain version; then the cell route at a ragged crop."""
     from pytorch_toolbelt_tpu_torch.inference import ImageSlicer
     from pytorch_toolbelt_tpu_torch.ops import grid_merge, grid_merge_reference
 
@@ -368,32 +404,77 @@ def phase_merge(dev):
     grid = (ty, tx, STEP, STEP)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     tiles = torch.randn(ty * tx, 1, th, tw, device=dev, generator=gen)
+    # the same tiles 4 bytes off a 16-byte boundary: the kernel takes its general route for them
+    shifted = torch.empty(tiles.numel() + 1, device=dev)[1:].view_as(tiles).copy_(tiles)
     weight = torch.as_tensor(slicer.weight.astype(np.float32), device=dev)
-    crop = dict(out_hw=(5000, 5000), offset=(slicer.margin_top, slicer.margin_left))
+    out_hw, offset = (5000, 5000), (slicer.margin_top, slicer.margin_left)
+    inputs = {"cell": tiles, "general": shifted}
 
-    got = grid_merge(tiles, weight, grid, **crop)
-    ref = grid_merge_reference(tiles, weight, grid, **crop)
-    got_c, got_n = grid_merge(tiles, weight, grid, normalize=False)
-    ref_c, ref_n = grid_merge_reference(tiles, weight, grid, normalize=False)
-    torch.cuda.synchronize()
-    err = max(float((got - ref).abs().max()), float((got_c - ref_c).abs().max()), float((got_n - ref_n).abs().max()))
-    ok = bool(torch.isfinite(got).all()) and err <= MERGE_TOL
-    ms = cuda_ms(lambda: grid_merge(tiles, weight, grid, **crop), reps=10)
-    ref_ms = cuda_ms(lambda: grid_merge_reference(tiles, weight, grid, **crop), reps=2)
+    def merge(route, out_dtype, normalize=True, crop=(out_hw, offset)):
+        before = dict(grid_merge.launches_by_route)
+        got = grid_merge(inputs[route], weight, grid, *crop, normalize=normalize, out_dtype=out_dtype)
+        taken = [r for r, n in grid_merge.launches_by_route.items() if n != before[r]]
+        if taken != [route]:
+            raise AssertionError(f"phase 3's {route} input took the route {taken}")
+        return got
+
+    errs = {}
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for route in ("cell", "general"):
+            got = merge(route, out_dtype)
+            got_c, got_n = merge(route, out_dtype, normalize=False, crop=(None, (0, 0)))
+            ref = grid_merge_reference(tiles, weight, grid, out_hw, offset, out_dtype=out_dtype)
+            ref_c, ref_n = grid_merge_reference(tiles, weight, grid, normalize=False, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(got).all())
+            errs[route, out_dtype] = max(float((a.float() - b.float()).abs().max())
+                                         for a, b in ((got, ref), (got_c, ref_c), (got_n, ref_n))) if finite else math.inf
+            del got, got_c, got_n, ref, ref_c, ref_n
+    ok = all(err <= MERGE_TOL for err in errs.values())
+    log(f"[3] grid_merge {ty * tx} tiles -> 5000^2 at offset {offset}, normalized and (canvas, norm): max|err| "
+        "against grid_merge_reference "
+        + ", ".join(f"{route} route {str(dt)[6:]} out {err:.3e}" for (route, dt), err in errs.items())
+        + f" <= {MERGE_TOL:.0e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"grid_merge disagrees with grid_merge_reference: {errs}")
+
     # the library's overlap-add: F.fold of the weighted tiles (no division, no crop)
     cols = (tiles * weight).reshape(ty * tx, -1).t().unsqueeze(0)
-    fold = lambda: F.fold(cols, got_c.shape[1:], (th, tw), stride=STEP)  # noqa: E731
-    fold_err = float((fold()[0] - got_c).abs().max())
+    fold = lambda: F.fold(cols, slicer.target_shape, (th, tw), stride=STEP)  # noqa: E731
     fold_ms = cuda_ms(fold, reps=10)
-    nbytes = tiles.numel() * 4 + 5000 * 5000 * 4 + weight.numel() * 4
-    bound, bound_by = bound_ms(nbytes)
-    log(f"[3] grid_merge {ty * tx} tiles -> 5000^2: max|err| {err:.3e} <= {MERGE_TOL:.0e} {'ok' if ok else 'FAIL'}; "
-        f"kernel {ms} ({nbytes / ms / 1e6:.0f} GB/s of compulsory traffic), reference {ref_ms:.3f} ms; "
-        f"F.fold {fold_ms:.3f} ms (vs the kernel's canvas max|diff| {fold_err:.2e}); bound {bound:.3f} ms ({bound_by})")
-    if not ok:
-        raise AssertionError("grid_merge disagrees with grid_merge_reference")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": ref_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": fold_ms}
+    del cols
+    times = {}
+    for out_dtype in (torch.float32, torch.bfloat16):
+        nbytes = merge_bytes(grid, (th, tw), out_hw, offset, 1, 4, 4 if out_dtype == torch.float32 else 2)
+        bound, bound_by = bound_ms(nbytes)
+        for route in ("cell", "general"):
+            times[route, out_dtype] = cuda_ms(lambda: merge(route, out_dtype), reps=20)
+        ref_ms = cuda_ms(lambda: grid_merge_reference(tiles, weight, grid, out_hw, offset, out_dtype=out_dtype),
+                         reps=2)
+        ms = times["cell", out_dtype]
+        times["reference", out_dtype], times["bound", out_dtype] = ref_ms, (bound, bound_by)
+        log(f"[3] grid_merge {str(out_dtype)[6:]} out, cell route: {ms} ({nbytes / ms / 1e6:.0f} GB/s of "
+            f"{nbytes / 1e6:.1f} MB compulsory, {bound / ms:.0%} of the bound {bound:.4f} ms ({bound_by})); "
+            f"general route (one thread per element) {times['general', out_dtype]}; reference {ref_ms:.3f} ms; "
+            f"F.fold {fold_ms:.3f} ms ({smi})")
+
+    # a crop whose x-offset and width are not multiples of 4: each row's output starts off a 16-byte boundary
+    ragged = ((out_hw[0], out_hw[1] - 3), (offset[0], offset[1] + 1))
+    got = merge("cell", torch.float32, crop=ragged)
+    err = float((got - grid_merge_reference(tiles, weight, grid, *ragged, out_dtype=torch.float32)).abs().max())
+    del got
+    nbytes = merge_bytes(grid, (th, tw), *ragged, 1, 4, 4)
+    bound = bound_ms(nbytes)[0]
+    ms = cuda_ms(lambda: merge("cell", torch.float32, crop=ragged), reps=20)
+    log(f"[3] grid_merge float32 out, cell route at the ragged crop {ragged[0]} at offset {ragged[1]}: max|err| "
+        f"{err:.3e} <= {MERGE_TOL:.0e} {'ok' if err <= MERGE_TOL else 'FAIL'}; {ms} ({nbytes / ms / 1e6:.0f} GB/s, "
+        f"{bound / ms:.0%} of the bound {bound:.4f} ms) ({smi})")
+    if not err <= MERGE_TOL:
+        raise AssertionError(f"grid_merge at a ragged crop disagrees with grid_merge_reference: {err}")
+    return {"max_abs_err": errs["cell", torch.float32], "ms": times["cell", torch.float32],
+            "plain_ms": times["reference", torch.float32], "bound_ms": times["bound", torch.float32][0],
+            "bound_by": times["bound", torch.float32][1], "library_ms": fold_ms,
+            "bf16_out_ms": times["cell", torch.bfloat16], "bf16_out_bound_ms": times["bound", torch.bfloat16][0]}
 
 
 def phase_fused(model, fused, dev):
@@ -467,7 +548,7 @@ def phase_tiled(model, fused, dev):
 
     torch.cuda.synchronize()
     _reset_conv_counts()
-    grid_merge.launches = 0
+    _reset_merge_counts()
     outs, walls = {}, {}
     for mode, batch in runs:
         t0 = time.perf_counter()
@@ -475,11 +556,13 @@ def phase_tiled(model, fused, dev):
         torch.cuda.synchronize()
         walls[mode] = time.perf_counter() - t0
     launches = {"conv3x3": conv3x3.launches, "grid_merge": grid_merge.launches,
-                "conv3x3_by_route": dict(conv3x3.launches_by_route)}
+                "conv3x3_by_route": dict(conv3x3.launches_by_route),
+                "grid_merge_by_route": dict(grid_merge.launches_by_route)}
     log(f"[5] main path launches: {launches}")
     if min(conv3x3.launches, grid_merge.launches) == 0:
         raise AssertionError(f"a kernel of the main path was never launched: {launches}")
     _check_conv_routes("[5] 2048^2 runs")
+    _check_merge_routes("[5] 2048^2 runs", len(runs))
 
     for mode, batch in runs:
         got = outs[mode].float()
@@ -502,6 +585,23 @@ def _reset_conv_counts():
         conv3x3.launches_by_route[route] = 0
 
 
+def _reset_merge_counts():
+    from pytorch_toolbelt_tpu_torch.ops import grid_merge
+
+    grid_merge.launches = 0
+    for route in grid_merge.launches_by_route:
+        grid_merge.launches_by_route[route] = 0
+
+
+def _check_merge_routes(what: str, calls: int):
+    """Each ``tiled_apply_d4_tta`` call merges with one K1 launch, on the cell route."""
+    from pytorch_toolbelt_tpu_torch.ops import grid_merge
+
+    by_route = grid_merge.launches_by_route
+    if by_route["cell"] != calls or sum(by_route.values()) != calls:
+        raise AssertionError(f"{what}: K1 launches by route {by_route}, expected {calls} on the cell route")
+
+
 def _check_conv_routes(what: str):
     """UNet-32's forward has one conv with C_in % 8 != 0 (the 3-channel stem,
     the load route) and 14 with C_in % 8 == 0, which must all take TMA."""
@@ -516,7 +616,7 @@ def phase_full_size(fused, dev, smi):
     from torch.profiler import ProfilerActivity, profile
 
     from pytorch_toolbelt_tpu_torch.inference import tiled_apply_d4_tta
-    from pytorch_toolbelt_tpu_torch.ops import conv3x3
+    from pytorch_toolbelt_tpu_torch.ops import conv3x3, grid_merge
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     image = torch.rand(3, 5000, 5000, device=dev, generator=gen)
@@ -524,6 +624,7 @@ def phase_full_size(fused, dev, smi):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_conv_counts()
+        _reset_merge_counts()
         t0 = time.perf_counter()
         out = tiled_apply_d4_tta(fused, image, TILE, STEP, weight="pyramid", batch_size=batch, mode=mode)
         torch.cuda.synchronize()
@@ -532,8 +633,10 @@ def phase_full_size(fused, dev, smi):
             raise AssertionError(f"5000^2 {mode} run gave a wrong shape or non-finite values")
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[6] tiled_apply_d4_tta 5000^2 {mode} batch={batch}: {wall:.3f} s, {25.0 / wall:.2f} MP/s, "
-            f"peak {peak:.2f} GiB allocated; K2 launches by route {dict(conv3x3.launches_by_route)} ({smi})")
+            f"peak {peak:.2f} GiB allocated; K2 launches by route {dict(conv3x3.launches_by_route)}, K1 "
+            f"{dict(grid_merge.launches_by_route)} ({smi})")
         _check_conv_routes(f"[6] 5000^2 {mode}")
+        _check_merge_routes(f"[6] 5000^2 {mode}", 1)
         del out
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1238,7 +1341,7 @@ def main() -> int:
 
     smi = phase_build()
     conv = phase_conv(dev, smi)
-    merge = phase_merge(dev)
+    merge = phase_merge(dev, smi)
     model = seeded_unet(SEED, dev)
     fused = fuse_unet_inference(model)
     phase_fused(model, fused, dev)
@@ -1259,7 +1362,8 @@ def main() -> int:
          "replaces": "pytorch_toolbelt_tpu/ops/conv_kernels.py:153", "launches": launches["conv3x3"], **conv,
          "launches_by_route": launches["conv3x3_by_route"]},
         {"name": "grid_merge", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/tile_merge.cu",
-         "replaces": "pytorch_toolbelt_tpu/ops/tile_merge.py:358", "launches": launches["grid_merge"], **merge},
+         "replaces": "pytorch_toolbelt_tpu/ops/tile_merge.py:358", "launches": launches["grid_merge"], **merge,
+         "launches_by_route": launches["grid_merge_by_route"]},
         {"name": "scatter_merge", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/scatter_merge.cu",
          "replaces": "pytorch_toolbelt_tpu/ops/tile_merge.py:153", "launches": scatter_launches, **scatter},
     ]

@@ -37,8 +37,8 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # name: (return type, argument types).  Sizes that can pass 2^31 are c_longlong.
 _SIGNATURES = {
     # device, tiles, tiles_dtype, weight, out, out_dtype, norm_out, channels, th, tw,
-    # ty, tx, sh, sw, out_h, out_w, off_y, off_x, normalize, eps, stream
-    "ptt_grid_merge": (_I, [_I, _P, _I, _P, _P, _I, _P] + [_I] * 12 + [_F, _P]),
+    # ty, tx, sh, sw, out_h, out_w, off_y, off_x, normalize, eps, int* route taken (out), stream
+    "ptt_grid_merge": (_I, [_I, _P, _I, _P, _P, _I, _P] + [_I] * 12 + [_F, _P, _P]),
     # device, canvas, norm, tiles, tiles_dtype, weight, coords, n_tiles, channels, height, width,
     # th, tw, box_y0, box_x0, box_h, box_w, stream
     "ptt_scatter_merge": (_I, [_I, _P, _P, _P, _I, _P, _P, _I, _I, _LL, _LL, _I, _I] + [_LL] * 4 + [_P]),
@@ -47,6 +47,9 @@ _SIGNATURES = {
     # device, x, w, scale, bias, y, B, H, W, cin, cout, n_tile, relu, stream
     "ptt_conv3x3_wgmma_bf16": (_I, [_I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
     "ptt_conv3x3_wgmma_ld_bf16": (_I, [_I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
+    # device, tiles_dtype, out_dtype, kh, kw, int[6] out: threads, ring stages, dynamic shared bytes,
+    # blocks per SM, rectangle rows and columns of K1's cell route
+    "ptt_grid_merge_cell_info": (_I, [_I, _I, _I, _I, _I, _P]),
     # rows, n -> 4-byte words of scratch
     "ptt_radix_sort_workspace": (_LL, [_LL, _LL]),
     "ptt_merge_sort_workspace": (_LL, [_LL, _LL]),

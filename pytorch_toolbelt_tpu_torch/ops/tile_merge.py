@@ -6,6 +6,9 @@ merges a grid with the Pallas gather kernel ``pallas_grid_merge``; here the
 same gather formulation is a CUDA kernel (``csrc/tile_merge.cu``) that also
 fuses the normalisation by the summed window and the crop of the margins, so
 tiled inference ends with one launch that writes each output element once.
+It has two routes: ``cell``, where the steps divide the tile and blocks walk
+the cells of the step lattice with TMA-fed 16-byte accesses, and
+``general``, one thread per output element, for the rest.
 Its Pallas scatter kernel ``pallas_accumulate_tiles``, which adds a batch of
 tiles at arbitrary coordinates into a canvas in place, is the CUDA kernel
 ``csrc/scatter_merge.cu``.
@@ -19,6 +22,7 @@ CUDA tensors and run :func:`grid_merge_reference` and
 tensors; on any other device they raise.
 """
 
+import ctypes
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -146,7 +150,10 @@ def grid_merge(
         out_dtype: fp32 or bf16, default the tiles' dtype.
 
     CPU tensors take :func:`grid_merge_reference`; CUDA tensors launch the
-    kernel (counted in ``grid_merge.launches``).
+    kernel, which picks its route from the geometry and the tensors'
+    alignment (``cell`` or ``general``, see ``cell_takes`` in
+    ``csrc/tile_merge.cu``); launches are counted in ``grid_merge.launches``
+    and, by the route the kernel took, ``grid_merge.launches_by_route``.
     """
     if tiles.device.type == "cpu":
         return grid_merge_reference(tiles, weight, grid, out_hw, offset, normalize, out_dtype)
@@ -168,19 +175,24 @@ def grid_merge(
         raise ValueError(f"grid_merge: weight must be a contiguous fp32 [{th}, {tw}] tensor on {tiles.device}")
     out = torch.empty(k, out_h, out_w, dtype=out_dtype, device=tiles.device)
     norm = None if normalize else torch.empty(1, out_h, out_w, dtype=torch.float32, device=tiles.device)
-    lib = _build.library()
-    err = lib.ptt_grid_merge(
+    route = ctypes.c_int(-1)
+    err = _build.library().ptt_grid_merge(
         tiles.device.index, tiles.data_ptr(), _DTYPE_CODES[tiles.dtype], weight.data_ptr(),
         out.data_ptr(), _DTYPE_CODES[out_dtype], None if norm is None else norm.data_ptr(),
-        k, th, tw, ty, tx, sh, sw, out_h, out_w, off_y, off_x, int(normalize), NORM_EPS,
+        k, th, tw, ty, tx, sh, sw, out_h, out_w, off_y, off_x, int(normalize), NORM_EPS, ctypes.byref(route),
         _build.stream_of(tiles.device),
     )
     _build.check(err, "grid_merge")
     grid_merge.launches += 1
+    grid_merge.launches_by_route[_ROUTES[route.value]] += 1
     return out if normalize else (out, norm)
 
 
+# K1's routes (csrc/tile_merge.cu), indexed by the code ptt_grid_merge reports
+_ROUTES = ("general", "cell")
+
 grid_merge.launches = 0
+grid_merge.launches_by_route = dict.fromkeys(_ROUTES, 0)
 
 
 # Tiles per launch of the scatter merge (kMaxTiles in csrc/scatter_merge.cu):

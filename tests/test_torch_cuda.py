@@ -160,11 +160,115 @@ def test_grid_merge_matches_reference(dev, geometry, k, dtype, out_dtype):
         got = grid_merge(tiles, weight, grid, out_dtype=out_dtype, **kwargs)
         assert grid_merge.launches == before + 1 and got.dtype == out_dtype
         want = grid_merge_reference(tiles, weight, grid, out_dtype=out_dtype, **kwargs)
-        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 if out_dtype == torch.float32 else 1e-2)
+        torch.testing.assert_close(got, want, rtol=0, atol=0 if out_dtype == torch.float32 else 1e-2)
     got_c, got_n = grid_merge(tiles, weight, grid, normalize=False, out_dtype=torch.float32)
     ref_c, ref_n = grid_merge_reference(tiles, weight, grid, normalize=False, out_dtype=torch.float32)
-    torch.testing.assert_close(got_c, ref_c, rtol=0, atol=1e-5)
-    torch.testing.assert_close(got_n, ref_n, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got_c, ref_c, rtol=0, atol=0)
+    torch.testing.assert_close(got_n, ref_n, rtol=0, atol=0)
+
+
+# (th, tw, sh, sw, ty, tx), crop (top, left, bottom, right), K, tiles' dtype, output dtype, the route K1 takes
+_K1_CASES = {
+    "main_path_small": ((64, 64, 32, 32, 4, 4), (6, 6, 6, 6), 1, torch.float32, torch.float32, "cell"),
+    "ragged_crop": ((64, 64, 32, 32, 3, 4), (5, 7, 2, 3), 1, torch.float32, torch.float32, "cell"),
+    "tw_not_multiple_of_4": ((32, 30, 16, 15, 3, 4), (2, 3, 1, 1), 2, torch.float32, torch.float32, "general"),
+    "step_not_dividing_tile": ((64, 64, 24, 24, 3, 3), (6, 6, 6, 6), 2, torch.float32, torch.float32, "general"),
+    "one_tile": ((64, 64, 32, 32, 1, 1), (0, 0, 0, 0), 2, torch.float32, torch.float32, "cell"),
+    "one_row": ((64, 64, 32, 32, 1, 4), (3, 4, 0, 8), 1, torch.float32, torch.float32, "cell"),
+    "one_column": ((64, 64, 32, 32, 4, 1), (6, 0, 5, 1), 1, torch.float32, torch.float32, "cell"),
+    "k3": ((64, 64, 32, 32, 3, 3), (6, 6, 6, 6), 3, torch.float32, torch.float32, "cell"),
+    "k19": ((64, 64, 32, 32, 3, 3), (6, 6, 6, 6), 19, torch.float32, torch.float32, "cell"),
+    "bf16_in_bf16_out": ((64, 64, 32, 32, 3, 4), (6, 6, 6, 6), 3, torch.bfloat16, torch.bfloat16, "cell"),
+    "bf16_in_fp32_out": ((64, 64, 32, 32, 3, 4), (5, 7, 2, 3), 2, torch.bfloat16, torch.float32, "cell"),
+    "fp32_in_bf16_out": ((64, 64, 32, 32, 3, 4), (6, 6, 6, 6), 2, torch.float32, torch.bfloat16, "cell"),
+    "no_overlap": ((32, 32, 32, 32, 3, 4), (0, 0, 0, 0), 1, torch.float32, torch.float32, "cell"),
+    "16_covering_tiles": ((32, 32, 8, 8, 3, 4), (2, 3, 3, 4), 3, torch.float32, torch.float32, "cell"),
+    "steps_of_12_and_24": ((36, 48, 12, 24, 4, 3), (1, 2, 1, 2), 2, torch.float32, torch.float32, "cell"),
+    "step_beyond_a_box": ((320, 320, 160, 160, 2, 2), (7, 9, 5, 3), 1, torch.float32, torch.float32, "cell"),
+}
+
+
+def _assert_k1_route(route, before):
+    after = grid_merge.launches_by_route
+    assert {r: after[r] - n for r, n in before.items()} == {r: int(r == route) for r in before}
+
+
+@pytest.mark.parametrize("case", list(_K1_CASES))
+def test_grid_merge_routes_equal_reference_bit_for_bit(dev, case):
+    """Each geometry takes its route (counted in launches_by_route) and
+    equals grid_merge_reference exactly: normalized, and as (canvas, norm)."""
+    geometry, (top, left, bottom, right), k, dtype, out_dtype, route = _K1_CASES[case]
+    tiles, weight, grid, (H, W) = _grid(*geometry, k=k, seed=len(case), dtype=dtype, dev=dev)
+    crop = {"out_hw": (H - top - bottom, W - left - right), "offset": (top, left)}
+    for normalize in (True, False):
+        before = dict(grid_merge.launches_by_route)
+        got = grid_merge(tiles, weight, grid, normalize=normalize, out_dtype=out_dtype, **crop)
+        _assert_k1_route(route, before)
+        want = grid_merge_reference(tiles, weight, grid, normalize=normalize, out_dtype=out_dtype, **crop)
+        for g, w in [(got, want)] if normalize else zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+# (th, tw, sh, sw, ty, tx): the route K1 takes with fp32 tiles and with bf16 tiles
+_K1_ROUTES = [
+    ((512, 512, 256, 256, 19, 19), "cell", "cell"),  # the main path
+    ((64, 64, 32, 32, 4, 4), "cell", "cell"),
+    ((32, 32, 32, 32, 3, 4), "cell", "cell"),  # no overlap
+    ((32, 32, 8, 8, 3, 4), "cell", "cell"),  # 16 covering tiles, the most the cell route takes
+    ((36, 48, 12, 24, 4, 3), "cell", "cell"),
+    ((36, 36, 12, 12, 3, 3), "cell", "general"),  # bf16 rows of 72 bytes: no tensor map
+    ((32, 32, 4, 4, 3, 3), "general", "general"),  # 64 covering tiles
+    ((64, 64, 24, 24, 3, 3), "general", "general"),  # the step does not divide the tile
+    ((32, 30, 16, 15, 3, 4), "general", "general"),  # steps of 15 columns, rows of 120 bytes
+    ((32, 36, 16, 18, 3, 4), "general", "general"),  # steps of 18 columns: vectors would cross cells
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry,fp32_route,bf16_route", _K1_ROUTES)
+def test_grid_merge_route(dev, geometry, fp32_route, bf16_route, dtype):
+    """The kernel picks its route from the geometry (cell_takes in
+    csrc/tile_merge.cu) and reports it; either route equals the reference."""
+    tiles, weight, grid, _ = _grid(*geometry, k=1, seed=geometry[2], dtype=dtype, dev=dev)
+    before = dict(grid_merge.launches_by_route)
+    got = grid_merge(tiles, weight, grid, out_dtype=torch.float32)
+    _assert_k1_route(fp32_route if dtype == torch.float32 else bf16_route, before)
+    torch.testing.assert_close(got, grid_merge_reference(tiles, weight, grid, out_dtype=torch.float32),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("off", ["tiles", "weight"])
+def test_grid_merge_general_route_off_16_byte_alignment(dev, off):
+    """Tiles or a weight that start off a 16-byte boundary go to the general route."""
+    tiles, weight, grid, _ = _grid(64, 64, 32, 32, 2, 2, k=1, seed=0, dtype=torch.float32, dev=dev)
+    moved = tiles if off == "tiles" else weight
+    moved = torch.empty(moved.numel() + 1, device=dev)[1:].view_as(moved).copy_(moved)
+    args = (moved, weight) if off == "tiles" else (tiles, moved)
+    before = dict(grid_merge.launches_by_route)
+    got = grid_merge(*args, grid)
+    _assert_k1_route("general", before)
+    torch.testing.assert_close(got, grid_merge_reference(tiles, weight, grid), rtol=0, atol=0)
+
+
+def test_grid_merge_over_2_31_elements_in_the_tile_stack(dev):
+    """64-bit offsets: 46 x 46 bf16 tiles of [4, 512, 512] hold 2.2e9
+    elements; the cell route's tile planes and the output stay exact."""
+    if torch.cuda.get_device_properties(dev).total_memory < 40 * 2**30:
+        pytest.skip("needs a card with 40 GB")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ty = tx = 46
+    tiles = torch.rand(ty * tx, 4, 512, 512, device=dev, generator=gen, dtype=torch.bfloat16)
+    assert tiles.numel() > 2**31
+    weight = torch.rand(512, 512, device=dev, generator=gen) + 0.1
+    grid = (ty, tx, 256, 256)
+    H = W = (ty - 1) * 256 + 512
+    crop = {"out_hw": (H - 12, W - 12), "offset": (6, 6)}
+    before = dict(grid_merge.launches_by_route)
+    got = grid_merge(tiles, weight, grid, out_dtype=torch.float32, **crop)
+    _assert_k1_route("cell", before)
+    want = grid_merge_reference(tiles, weight, grid, out_dtype=torch.float32, **crop)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_tile_merger_on_cuda_matches_cpu(dev):
@@ -174,8 +278,10 @@ def test_tile_merger_on_cuda_matches_cpu(dev):
     results = []
     for device in (torch.device("cpu"), dev):
         merger = TileMerger(slicer.target_shape, channels=3, weight=slicer.weight, device=device)
+        before = dict(grid_merge.launches_by_route)
         merger.integrate_batch(tiles.to(device), slicer.crops)
         results.append(merger.merge().cpu())
+    _assert_k1_route("cell", before)  # use_pallas="auto": the whole grid in one K1 launch, on the cell route
     torch.testing.assert_close(results[1], results[0], rtol=0, atol=1e-5)
 
 
@@ -301,9 +407,10 @@ def _pattern_model(device):
 def test_tiled_apply_d4_tta_on_cuda_matches_cpu(dev, mode):
     image = torch.from_numpy(np.random.RandomState(13).random((3, 100, 90)).astype(np.float32))
     want = tiled_apply_d4_tta(_pattern_model("cpu"), image, 32, 16, batch_size=4, mode=mode)
-    before = grid_merge.launches
+    before, by_route = grid_merge.launches, dict(grid_merge.launches_by_route)
     got = tiled_apply_d4_tta(_pattern_model(dev), image.to(dev), 32, 16, batch_size=4, mode=mode)
     assert grid_merge.launches == before + 1
+    _assert_k1_route("cell", by_route)  # at a crop x-offset of 3: rows of the output off a 16-byte boundary
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
 
 

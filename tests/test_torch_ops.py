@@ -218,6 +218,64 @@ def test_grid_merge_reference_step_not_dividing_tile():
     np.testing.assert_allclose(got.numpy().transpose(1, 2, 0), np.asarray(want_c) / np.asarray(want_n), atol=1e-5)
 
 
+# (th, tw, sh, sw, ty, tx): the geometries whose route the CUDA tests check
+_K1_GEOMETRIES = [
+    (64, 64, 32, 32, 4, 4),
+    (32, 32, 32, 32, 3, 4),  # no overlap
+    (32, 32, 8, 8, 3, 4),  # 16 covering tiles
+    (36, 48, 12, 24, 4, 3),
+    (48, 40, 24, 20, 3, 4),  # steps of 20 columns
+    (36, 36, 12, 12, 3, 3),
+    (32, 32, 4, 4, 3, 3),  # 64 covering tiles
+    (40, 40, 20, 10, 3, 5),  # steps of 10 columns
+    (32, 30, 16, 15, 3, 4),
+    (32, 36, 16, 18, 3, 4),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry", _K1_GEOMETRIES)
+def test_grid_merge_geometries_match_jax(geometry, dtype):
+    """The port's merge on the CPU against the JAX Pallas grid merge at each
+    geometry of K1's routes, on fp32 tiles and on bf16-rounded ones."""
+    th, tw, sh, sw, ty, tx = geometry
+    rng = np.random.RandomState(th * tw + sh)
+    coords = np.array([[y * sh, x * sw] for y in range(ty) for x in range(tx)], dtype=np.int32)
+    H, W = (ty - 1) * sh + th, (tx - 1) * sw + tw
+    tiles = torch.from_numpy(rng.rand(ty * tx, 2, th, tw).astype(np.float32)).to(dtype)
+    weight = rng.rand(th, tw).astype(np.float32) + 0.1
+    j_canvas, j_norm = j_pallas_grid_merge(jnp.asarray(nchw_to_nhwc(tiles.float())), coords, weight, (H, W),
+                                           interpret=True)
+    got = grid_merge(tiles, torch.from_numpy(weight), (ty, tx, sh, sw), out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy().transpose(1, 2, 0), np.asarray(j_canvas) / np.asarray(j_norm),
+                               rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="steps"):
+        grid_merge(tiles, torch.from_numpy(weight), (ty, tx, th + 1, sw))
+
+
+@pytest.mark.parametrize(
+    "geometry,crop",
+    [((64, 64, 32, 32, 4, 4), (6, 6, 6, 6)), ((64, 64, 32, 32, 3, 4), (5, 7, 2, 3)),
+     ((64, 64, 32, 32, 1, 4), (3, 4, 0, 8)), ((36, 48, 12, 24, 4, 3), (1, 2, 1, 2))],
+)
+def test_grid_merge_crops_match_jax(geometry, crop):
+    """The cell route's geometries of the CUDA tests, cropped as there (the
+    main path's offset at a small scale, and ragged x-offsets and widths):
+    the port's merge on the CPU against the JAX Pallas grid merge."""
+    th, tw, sh, sw, ty, tx = geometry
+    top, left, bottom, right = crop
+    rng = np.random.RandomState(th + ty)
+    coords = np.array([[y * sh, x * sw] for y in range(ty) for x in range(tx)], dtype=np.int32)
+    H, W = (ty - 1) * sh + th, (tx - 1) * sw + tw
+    tiles = rng.rand(ty * tx, th, tw, 3).astype(np.float32)
+    weight = rng.rand(th, tw).astype(np.float32) + 0.1
+    j_canvas, j_norm = j_pallas_grid_merge(jnp.asarray(tiles), coords, weight, (H, W), interpret=True)
+    want = (np.asarray(j_canvas) / np.asarray(j_norm))[top : H - bottom, left : W - right]
+    got = grid_merge(nhwc_to_nchw(tiles), torch.from_numpy(weight), (ty, tx, sh, sw),
+                     out_hw=(H - top - bottom, W - left - right), offset=(top, left))
+    np.testing.assert_allclose(got.numpy().transpose(1, 2, 0), want, rtol=0, atol=1e-5)
+
+
 def test_detect_regular_grid():
     tiler = TImageSlicer((1024, 768), tile_size=256, tile_step=128, weight="mean")
     assert detect_regular_grid(tiler.crops[:, [1, 0]], 256, 256) == (7, 5, 128, 128)

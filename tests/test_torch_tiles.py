@@ -1,7 +1,8 @@
 """Parity of the PyTorch port's tiled inference with the JAX package, on the
 CPU (the merge through its plain version): ``tiled_apply_d4_tta`` in both
 modes with a bridged UNet, an independent numpy oracle on a model that is
-not d4-equivariant, ``TileMerger`` and the tiling plan.
+not d4-equivariant, ``ImageSlicer``'s border modes, ``TileMerger`` and the
+tiling plan.
 
 Images are [H, W, C] in JAX and [C, H, W] in the port.
 """
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from pytorch_toolbelt_tpu.inference import ImageSlicer as JImageSlicer
 from pytorch_toolbelt_tpu.inference import TileMerger as JTileMerger
 from pytorch_toolbelt_tpu.inference import tiled_apply_d4_tta as j_tiled_apply_d4_tta
 from pytorch_toolbelt_tpu.inference.tiles import _get_tiled_plan as j_get_tiled_plan
@@ -192,6 +194,45 @@ def test_tiled_apply_pixelwise_model_is_identity(acc_dtype, tile, step):
                       accumulator_dtype=acc_dtype)
     tol = 1e-5 if acc_dtype == torch.float32 else 3e-2
     torch.testing.assert_close(out, image[:2] * 3.0, rtol=0, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# ImageSlicer's border modes, against the JAX slicer
+# ---------------------------------------------------------------------------
+
+# the five modes by name, then by their cv2.BORDER_* codes
+_BORDERS = ["constant", "replicate", "reflect", "wrap", "reflect101", 0, 1, 2, 3, 4]
+
+
+@pytest.mark.parametrize("channels", [None, 3])
+@pytest.mark.parametrize("border", _BORDERS, ids=str)
+def test_image_slicer_border_modes_match_jax(border, channels):
+    """``split``, ``iter_split`` and ``cut_patch`` pad the margins as the JAX
+    slicer does, bit for bit, in each border mode, where the step does not
+    divide the image (70x90, tile 32, step 24: margins on all four sides).
+    The margins are K1's crop offset."""
+    shape = (70, 90) + ((channels,) if channels else ())
+    image = np.random.RandomState(12).randint(0, 256, shape).astype(np.uint8)
+    kwargs = dict(value=7, border_type=border)
+    t, j = ImageSlicer(image.shape, 32, 24), JImageSlicer(image.shape, 32, 24)
+    margins = ("margin_top", "margin_bottom", "margin_left", "margin_right")
+    assert [getattr(t, m) for m in margins] == [getattr(j, m) for m in margins] == [5, 5, 7, 7]
+    np.testing.assert_array_equal(t.crops, j.crops)
+    np.testing.assert_array_equal(t.bbox_crops, j.bbox_crops)
+
+    def assert_same(a, b):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+    t_tiles, j_tiles = t.split(image, **kwargs), j.split(image, **kwargs)
+    assert len(t_tiles) == len(j_tiles) == len(t.crops) == 12
+    for a, b in zip(t_tiles, j_tiles):
+        assert_same(a, b)
+    for (a, a_coords), (b, b_coords) in zip(t.iter_split(image, **kwargs), j.iter_split(image, **kwargs), strict=True):
+        assert_same(a, b)
+        np.testing.assert_array_equal(a_coords, b_coords)
+    for i in range(len(t.crops)):
+        assert_same(t.cut_patch(image, i, **kwargs), j.cut_patch(image, i, **kwargs))
 
 
 # ---------------------------------------------------------------------------
