@@ -9,9 +9,10 @@ holds each kernel against its plain PyTorch version at the shapes of the
 main path, then drives the main paths through the entry points a user calls -- tiled UNet-32
 inference with d4 test-time augmentation in both modes, the BASELINE
 config-4 loss suite, streaming tiled inference of SEResNeXt50-FPN through
-``TileMerger(use_pallas=True)``, and config 3's d4 + multiscale TTA -- and
-holds each against an independent plain path.  Weights and data are random,
-made from a seed.
+``TileMerger(use_pallas=True)``, config 3's d4 + multiscale TTA, a
+ResNet34-UNet through tiled d4 inference, and pad -> d2 TTA -> unpad on one
+image -- and holds each against an independent plain path.  Weights and
+data are random, made from a seed.
 
 Phases, each printed on its own line:
   1. the card's name and power limit; the kernel build and its time; each
@@ -76,7 +77,22 @@ Phases, each printed on its own line:
      slicing time;
  11. BASELINE config 3: ``MultiscaleTTA(d4_image2mask, [0, -256])`` over
      SEResNeXt50-FPN(128) on one 1024^2 image in bf16 against fp32; ms per
-     call, MP/s, peak memory.
+     call, MP/s, peak memory;
+ 12. a ResNet34-UNet (``resnet34_encoder()``, residual UNet decoder (32, 64,
+     128, 256) with deconvolution upsampling, ResizeHead(19); cuDNN convs,
+     eager, bf16, channels_last) through ``tiled_apply_d4_tta``: at 2048^2
+     in both modes against the plain path on the fp32 model, every K1 launch
+     on the cell route; one 5000^2 distributed run at batch 64 for its wall
+     time, MP/s, peak memory and K1's route at K = 19, then under
+     ``torch.profiler`` the idle share, the device time by kind (cuDNN
+     convs, BatchNorm, upsample, cat, K1, the rest) and the top kernels;
+     K1 alone at that call's shape (361 fp32 [19, 512, 512] tiles ->
+     5000^2), bit for bit against the plain version, timed beside its
+     bound, the plain version and ``F.fold``;
+ 13. pad -> d2 TTA -> unpad: ``pad_image_tensor`` of one 1000^2 image to
+     1024^2, ``GeneralizedTTA(d2_image_augment, d2_image_deaugment)`` over
+     the ResNet34-UNet in bf16, ``unpad_image_tensor``; against four flips
+     of the fp32 model written here; ms per call.
 
 Device times are medians over five windows of CUDA events; each phase
 prints the spread (min-max) of its kernel's windows beside the median.
@@ -132,6 +148,13 @@ STREAM_SIZE, STREAM_BATCH = 5000, 32  # 361 tiles of 512^2 at step 256 -> 12 bat
 STREAM_CHECK_SIZE = 2048  # the bf16 path against the fp32 one
 MS_SIZE, MS_OFFSETS = 1024, [0, -256]  # BASELINE config 3
 RESIDUAL_BN_SCALE = 0.25  # see config3_model
+# The ResNet34-UNet: the first four of segmentation_models_pytorch.Unet's default decoder_channels
+UNET34_DECODER = (32, 64, 128, 256)
+UNET34_SIZE, UNET34_CHECK_SIZE = 5000, 2048  # the timed run; the bf16 path against the fp32 plain path
+PAD_SIZE, PAD_TARGET = 1000, 1024  # one image, padded to a multiple of 32
+# (kind, pattern of the kernel names) for phase 12's device time; the first match counts
+DEVICE_KINDS = (("K1", r"grid_merge"), ("cuDNN convs", r"xmma|cutlass|cudnn|fprop|dgrad|convolve"),
+                ("BatchNorm", r"batch_norm"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"))
 
 
 def log(msg: str) -> None:
@@ -613,8 +636,6 @@ def _check_conv_routes(what: str):
 
 
 def phase_full_size(fused, dev, smi):
-    from torch.profiler import ProfilerActivity, profile
-
     from pytorch_toolbelt_tpu_torch.inference import tiled_apply_d4_tta
     from pytorch_toolbelt_tpu_torch.ops import conv3x3, grid_merge
 
@@ -639,14 +660,8 @@ def phase_full_size(fused, dev, smi):
         _check_merge_routes(f"[6] 5000^2 {mode}", 1)
         del out
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = tiled_apply_d4_tta(fused, image, TILE, STEP, weight="pyramid", batch_size=DIST_BATCH,
-                                 mode="distributed")
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    del out
-    busy, by_name = _device_busy_ms(prof), _device_ms_by_name(prof)
+    wall_ms, busy, by_name = _profiled(lambda: tiled_apply_d4_tta(fused, image, TILE, STEP, weight="pyramid",
+                                                                  batch_size=DIST_BATCH, mode="distributed"))
     if busy == 0:
         log("[6] profiled 5000^2 distributed run: device time not measured (the profiler saw no CUDA events)")
         return
@@ -1202,11 +1217,22 @@ def _device_ms_by_name(prof) -> dict:
     return by_name
 
 
+def _profiled(fn):
+    """Run ``fn`` once under ``torch.profiler``: (wall ms to a synchronize,
+    device busy ms, device ms by kernel name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, _device_busy_ms(prof), _device_ms_by_name(prof)
+
+
 def phase_streaming(dev, smi, model, model_bf16):
     """Streaming tiled inference of a 5000^2 image through K3, and the
     2048^2 bf16 run against the fp32 one."""
-    from torch.profiler import ProfilerActivity, profile
-
     from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, TileMerger
     from pytorch_toolbelt_tpu_torch.ops import accumulate_tiles
 
@@ -1261,13 +1287,7 @@ def phase_streaming(dev, smi, model, model_bf16):
     peak = torch.cuda.max_memory_allocated() / 2**30
     del out
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, out = stream_tiled(forward, image, slicer, dev)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    del out
-    busy, by_name = _device_busy_ms(prof), _device_ms_by_name(prof)
+    prof_wall_ms, busy, by_name = _profiled(lambda: stream_tiled(forward, image, slicer, dev))
     k3_ms = sum(ms for name, ms in by_name.items() if "scatter_merge" in name)
     profile_line = "device time not measured (the profiler saw no CUDA events)"
     if busy > 0:
@@ -1327,6 +1347,194 @@ def phase_config3(dev, smi, model, model_bf16):
     del out
 
 
+def resnet34_unet(dev):
+    """The ResNet34-UNet: ``resnet34_encoder()``, a residual UNet decoder of
+    widths UNET34_DECODER with deconvolution upsampling, ResizeHead(19);
+    seeded weights.  As in config3_model, the last BatchNorm of every
+    residual branch (the encoder's blocks and the decoder's residual blocks)
+    and of every projection shortcut gets its scale cut by
+    RESIDUAL_BN_SCALE, so that activations stay of order one.  Returns the
+    fp32 and the bf16 model, both channels_last."""
+    import copy
+
+    from pytorch_toolbelt_tpu_torch.nn import UnetResidualBlock
+    from pytorch_toolbelt_tpu_torch.zoo import EncoderDecoderModel, ResizeHead, UNetDecoder, resnet34_encoder
+    from pytorch_toolbelt_tpu_torch.zoo.encoders.resnet import BasicBlock
+
+    encoder = resnet34_encoder()
+    decoder = UNetDecoder(encoder.get_output_spec(), UNET34_DECODER, block_type="unet_residual",
+                          upsample_block="deconv")
+    model = seed_weights(EncoderDecoderModel(encoder, decoder, ResizeHead(decoder.get_output_spec(),
+                                                                            num_classes=CLASSES)), SEED + 13)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BasicBlock):
+                m.bn2.weight.mul_(RESIDUAL_BN_SCALE)
+                if m.downsample is not None:
+                    m.downsample[-1].weight.mul_(RESIDUAL_BN_SCALE)
+            elif isinstance(m, UnetResidualBlock):
+                m.norm2.norm.weight.mul_(RESIDUAL_BN_SCALE)
+    model = model.eval().to(dev, memory_format=torch.channels_last)
+    return model, copy.deepcopy(model).to(torch.bfloat16)
+
+
+def _k1_at(stack, weight, grid, out_hw, offset, smi):
+    """K1 alone at a main path's shape: bit for bit against the plain
+    version, then its ms beside its bound, the plain version and F.fold, per
+    output type."""
+    from pytorch_toolbelt_tpu_torch.ops import grid_merge, grid_merge_reference
+
+    n, k, th, tw = stack.shape
+    ty, tx, sh, sw = grid
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = grid_merge(stack, weight, grid, out_hw, offset, out_dtype=out_dtype)
+        err = float((got.float() - grid_merge_reference(stack, weight, grid, out_hw, offset,
+                                                        out_dtype=out_dtype).float()).abs().max())
+        del got
+        if not err <= MERGE_TOL:
+            raise AssertionError(f"grid_merge at K = {k} disagrees with grid_merge_reference: {err}")
+        nbytes = merge_bytes(grid, (th, tw), out_hw, offset, k, 4, 4 if out_dtype == torch.float32 else 2)
+        bound, bound_by = bound_ms(nbytes)
+        ms = cuda_ms(lambda: grid_merge(stack, weight, grid, out_hw, offset, out_dtype=out_dtype))
+        plain_ms = cuda_ms(lambda: grid_merge_reference(stack, weight, grid, out_hw, offset, out_dtype=out_dtype),
+                           reps=1, windows=3)
+        log(f"[12] grid_merge {n} fp32 tiles [{k}, {th}, {tw}] -> {out_hw[0]}x{out_hw[1]}, {str(out_dtype)[6:]} out: "
+            f"max|err| {err:.3e} <= {MERGE_TOL:.0e} ok; {ms} ({nbytes / ms / 1e6:.0f} GB/s of {nbytes / 1e6:.1f} MB "
+            f"compulsory, {bound / ms:.0%} of the bound {bound:.4f} ms ({bound_by})); reference {plain_ms:.3f} ms "
+            f"({smi})")
+    cols = (stack * weight).reshape(n, -1).t().unsqueeze(0)
+    fold_ms = cuda_ms(lambda: F.fold(cols, ((ty - 1) * sh + th, (tx - 1) * sw + tw), (th, tw), stride=(sh, sw)),
+                      reps=2)
+    del cols
+    log(f"[12] F.fold of the {n} weighted tiles (overlap-add only, no division, no crop): {fold_ms} ({smi})")
+
+
+@torch.no_grad()
+def phase_resnet34_unet(dev, smi, model, model_bf16):
+    """The ResNet34-UNet through tiled d4 inference: at 2048^2 in both modes
+    against the plain path on the fp32 model; one 5000^2 distributed run for
+    its wall time, peak memory, K1's route at K = 19 and, under
+    torch.profiler, the idle share, device time by kind and top kernels; K1
+    alone at that shape."""
+    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, tiled_apply_d4_tta
+    from pytorch_toolbelt_tpu_torch.ops import conv3x3, grid_merge
+
+    forward = image_forward(model_bf16, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    check = torch.rand(3, UNET34_CHECK_SIZE, UNET34_CHECK_SIZE, device=dev, generator=gen)
+    runs = (("distributed", DIST_BATCH), ("full", FULL_BATCH))
+    torch.cuda.synchronize()
+    _reset_conv_counts()
+    _reset_merge_counts()
+    outs = {mode: tiled_apply_d4_tta(forward, check, TILE, STEP, weight="pyramid", batch_size=batch, mode=mode)
+            for mode, batch in runs}
+    torch.cuda.synchronize()
+    launches = {"grid_merge": grid_merge.launches, "grid_merge_by_route": dict(grid_merge.launches_by_route),
+                "conv3x3": conv3x3.launches}
+    log(f"[12] ResNet34-UNet main path launches at {UNET34_CHECK_SIZE}^2: {launches}")
+    _check_merge_routes(f"[12] {UNET34_CHECK_SIZE}^2 runs", len(runs))
+    for mode, batch in runs:
+        got = outs.pop(mode).float()
+        ref = plain_tiled_d4(model, check, mode)
+        err, tol = float((got - ref).abs().max()), PATH_TOL * float(ref.abs().max())
+        ok = (got.shape == (CLASSES, UNET34_CHECK_SIZE, UNET34_CHECK_SIZE) and bool(torch.isfinite(got).all())
+              and err <= tol)
+        log(f"[12] ResNet34-UNet tiled_apply_d4_tta {UNET34_CHECK_SIZE}^2 mode={mode} batch={batch}, bf16 vs the "
+            f"plain path on the fp32 model (TF32 off): max|err| {err:.3e} <= {tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the ResNet34-UNet tiled d4 path mode={mode} disagrees with the plain path")
+        del got, ref
+
+    image = torch.rand(3, UNET34_SIZE, UNET34_SIZE, device=dev, generator=gen)
+    run = lambda: tiled_apply_d4_tta(forward, image, TILE, STEP, weight="pyramid", batch_size=DIST_BATCH,  # noqa: E731
+                                     mode="distributed")
+    run()  # warm-up: cuDNN picks its algorithms for these shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_merge_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if out.shape != (CLASSES, UNET34_SIZE, UNET34_SIZE) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"the ResNet34-UNet {UNET34_SIZE}^2 run gave a wrong shape or non-finite values")
+    del out
+    by_route = dict(grid_merge.launches_by_route)
+    log(f"[12] ResNet34-UNet tiled_apply_d4_tta {UNET34_SIZE}^2 distributed batch={DIST_BATCH} bf16: {wall:.3f} s, "
+        f"{UNET34_SIZE**2 / 1e6 / wall:.2f} MP/s, peak {peak:.2f} GiB allocated; K1 launches by route {by_route} at K = {CLASSES} "
+        f"({smi})")
+    _check_merge_routes(f"[12] {UNET34_SIZE}^2 distributed", 1)
+    launches["grid_merge"] += grid_merge.launches
+    for route, n in by_route.items():
+        launches["grid_merge_by_route"][route] += n
+
+    wall_ms, busy, by_name = _profiled(run)
+    if busy == 0:
+        log(f"[12] profiled {UNET34_SIZE}^2 distributed run: device time not measured (the profiler saw no CUDA events)")
+    else:
+        kinds = {}
+        for name, ms in by_name.items():
+            kind = next((k for k, pattern in DEVICE_KINDS if re.search(pattern, name)), "other elementwise and copies")
+            kinds[kind] = kinds.get(kind, 0.0) + ms
+        log(f"[12] profiled {UNET34_SIZE}^2 distributed run: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+            f"(idle {1 - busy / wall_ms:.1%}); device time by kind: "
+            + ", ".join(f"{k} {ms:.2f} ms ({ms / busy:.1%})" for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]))
+            + f" ({smi})")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            log(f"[12]   device {ms:8.2f} ms  {name[:100]}")
+
+    slicer = ImageSlicer((UNET34_SIZE, UNET34_SIZE), TILE, STEP, weight="pyramid")
+    ty, tx = ((t - TILE) // STEP + 1 for t in slicer.target_shape)
+    stack = torch.randn(ty * tx, CLASSES, TILE, TILE, device=dev, generator=gen)
+    weight = torch.as_tensor(slicer.weight.astype(np.float32), device=dev)
+    _k1_at(stack, weight, (ty, tx, STEP, STEP), (UNET34_SIZE, UNET34_SIZE), (slicer.margin_top, slicer.margin_left), smi)
+    return launches
+
+
+def phase_pad_d2(dev, smi, model, model_bf16):
+    """The reference's pad -> TTA -> unpad recipe on one 1000^2 image:
+    pad_image_tensor to 1024^2, GeneralizedTTA with the d2 transforms, then
+    unpad_image_tensor; bf16 against the fp32 model through four flips
+    written here."""
+    from pytorch_toolbelt_tpu_torch.inference import (
+        GeneralizedTTA,
+        d2_image_augment,
+        d2_image_deaugment,
+        pad_image_tensor,
+        unpad_image_tensor,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    x = torch.rand(1, 3, PAD_SIZE, PAD_SIZE, device=dev, generator=gen)
+    tta = GeneralizedTTA(image_forward(model_bf16, torch.bfloat16), d2_image_augment, d2_image_deaugment)
+
+    def recipe():
+        padded, pad = pad_image_tensor(x, 32)
+        return unpad_image_tensor(tta(padded), pad), pad
+
+    with torch.no_grad():
+        got, pad = recipe()
+        got = got.float()
+        margin = (PAD_TARGET - PAD_SIZE) // 2
+        padded = F.pad(x, (margin,) * 4)
+        flips = ((), (3,), (2,), (2, 3))
+        ref = sum(model(padded.flip(dims)).flip(dims) for dims in flips) / len(flips)
+        ref = ref[:, :, margin : margin + PAD_SIZE, margin : margin + PAD_SIZE]
+        torch.cuda.synchronize()
+        err, tol = float((got - ref).abs().max()), PATH_TOL * float(ref.abs().max())
+        ok = (pad == (margin,) * 4 and got.shape == (1, CLASSES, PAD_SIZE, PAD_SIZE)
+              and bool(torch.isfinite(got).all()) and err <= tol)
+        log(f"[13] pad_image_tensor({PAD_SIZE}^2 -> {PAD_TARGET}^2, pad {pad}) -> GeneralizedTTA(d2) -> "
+            f"unpad_image_tensor, ResNet34-UNet bf16 vs four flips of the fp32 model (TF32 off): max|err| {err:.3e} "
+            f"<= {tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the pad -> d2 TTA -> unpad recipe disagrees with the explicit flips")
+        del got, ref, padded
+        ms = cuda_ms(recipe, reps=3, windows=3)
+    log(f"[13] pad -> d2 TTA -> unpad bf16: {ms} per call ({smi})")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1356,6 +1564,13 @@ def main() -> int:
     model3, model3_bf16 = config3_model(dev)
     scatter_launches = phase_streaming(dev, smi, model3, model3_bf16)
     phase_config3(dev, smi, model3, model3_bf16)
+    del model3, model3_bf16
+    model34, model34_bf16 = resnet34_unet(dev)
+    unet34 = phase_resnet34_unet(dev, smi, model34, model34_bf16)
+    launches["grid_merge"] += unet34["grid_merge"]
+    for route, n in unet34["grid_merge_by_route"].items():
+        launches["grid_merge_by_route"][route] += n
+    phase_pad_d2(dev, smi, model34, model34_bf16)
 
     kernels = [
         {"name": "conv3x3", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/conv3x3_wgmma.cuh",

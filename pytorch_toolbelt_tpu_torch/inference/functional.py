@@ -1,8 +1,11 @@
-"""D4 geometric primitives and probability means for NCHW tensors
-(counterpart of ``pytorch_toolbelt_tpu/inference/functional.py``, whose
-tensors are NHWC).  The spatial dims are (2, 3)."""
+"""D4 geometric primitives, padding helpers and probability means for NCHW
+tensors (counterpart of ``pytorch_toolbelt_tpu/inference/functional.py``,
+whose tensors are NHWC).  The spatial dims are (2, 3), or 2 onwards."""
+
+from typing import Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "geometric_mean",
@@ -23,6 +26,10 @@ __all__ = [
     "image_transpose_rot90_cw",
     "log1p_mean",
     "logodd_mean",
+    "pad_image_tensor",
+    "pad_tensor_to_size",
+    "unpad_image_tensor",
+    "unpad_xyxy_bboxes",
 ]
 
 
@@ -80,6 +87,73 @@ def image_transpose_rot90_cw(x: torch.Tensor) -> torch.Tensor:
 
 def image_transpose_rot180(x: torch.Tensor) -> torch.Tensor:
     return image_rot180(image_transpose(x))
+
+
+def pad_tensor_to_size(
+    x: torch.Tensor, size: Sequence[int], mode: str = "constant", value: float = 0
+) -> Tuple[torch.Tensor, Tuple[slice, ...]]:
+    """Pad a [B, C, *spatial] tensor to the spatial ``size``, centred (the
+    odd pixel after).  Returns (padded, crop) where ``padded[crop]`` is
+    ``x``.  ``mode``: 'constant' (with ``value``), 'reflect' or
+    'replicate' (numpy's 'edge')."""
+    if mode not in ("constant", "reflect", "replicate"):
+        raise KeyError(f"Unsupported pad mode {mode!r}")
+    num_spatial = len(size)
+    if num_spatial != x.ndim - 2:
+        raise ValueError(f"Expected {num_spatial} spatial dimensions, got {x.ndim - 2}")
+    pads, crop = [], [slice(None), slice(None)]
+    for target, current in zip(size, x.shape[2:]):
+        before = (target - current) // 2
+        pads.append((before, target - current - before))
+        crop.append(slice(before, before + current))
+    flat = [p for pair in reversed(pads) for p in pair]  # F.pad: the last dim first
+    return F.pad(x, flat, mode=mode, value=value if mode == "constant" else None), tuple(crop)
+
+
+def pad_image_tensor(
+    image_tensor: torch.Tensor, pad_size: Union[int, Tuple[int, int]] = 32
+) -> Tuple[torch.Tensor, Tuple[int, int, int, int]]:
+    """Zero-pad an NCHW tensor so that H and W divide by ``pad_size`` (an
+    image smaller than it grows to it), centred.  Returns (padded,
+    (pad_left, pad_right, pad_top, pad_btm))."""
+    if image_tensor.ndim != 4:
+        raise ValueError("Tensor must have rank 4 ([B,C,H,W])")
+    rows, cols = image_tensor.shape[2], image_tensor.shape[3]
+    if isinstance(pad_size, (tuple, list)):
+        pad_height, pad_width = int(pad_size[0]), int(pad_size[1])
+    elif isinstance(pad_size, int):
+        pad_height = pad_width = pad_size
+    else:
+        raise ValueError(f"Unsupported pad_size: {pad_size}")
+
+    def missing(size, multiple):
+        return (-size) % multiple if size > multiple else multiple - size
+
+    pad_rows, pad_cols = missing(rows, pad_height), missing(cols, pad_width)
+    if pad_rows == 0 and pad_cols == 0:
+        return image_tensor, (0, 0, 0, 0)
+    pad_top, pad_left = pad_rows // 2, pad_cols // 2
+    pad = (pad_left, pad_cols - pad_left, pad_top, pad_rows - pad_top)
+    return F.pad(image_tensor, pad), pad
+
+
+def unpad_image_tensor(image_tensor: torch.Tensor, pad: Tuple[int, int, int, int]) -> torch.Tensor:
+    """Undo :func:`pad_image_tensor` given its (pad_left, pad_right, pad_top, pad_btm)."""
+    if image_tensor.ndim != 4:
+        raise ValueError("Tensor must have rank 4 ([B,C,H,W])")
+    pad_left, pad_right, pad_top, pad_btm = pad
+    rows, cols = image_tensor.shape[2], image_tensor.shape[3]
+    return image_tensor[:, :, pad_top : rows - pad_btm, pad_left : cols - pad_right]
+
+
+def unpad_xyxy_bboxes(bboxes_tensor: torch.Tensor, pad: Tuple[int, int, int, int], dim: int = -1) -> torch.Tensor:
+    """Shift xyxy boxes (along ``dim``) from the padded image to the original."""
+    pad_left, _, pad_top, _ = pad
+    shape = [1] * bboxes_tensor.ndim
+    shape[dim] = 4
+    offsets = torch.tensor([pad_left, pad_top, pad_left, pad_top], dtype=bboxes_tensor.dtype,
+                           device=bboxes_tensor.device)
+    return bboxes_tensor - offsets.reshape(shape)
 
 
 def geometric_mean(x: torch.Tensor, dim: int) -> torch.Tensor:

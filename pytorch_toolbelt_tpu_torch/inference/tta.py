@@ -1,11 +1,14 @@
-"""Test-time augmentation (counterpart of the d4 and multiscale families of
-``pytorch_toolbelt_tpu/inference/tta.py``).
+"""Test-time augmentation (counterpart of ``pytorch_toolbelt_tpu/inference/tta.py``).
 
-d4: all views stack along the batch axis so the model runs one batched
-forward; the views need square images.  Multiscale: the model runs once per
-size offset, and the outputs are resized back and reduced.  Tensors are NCHW.
+Crops, flips, d2 and d4: all views stack along the batch axis so the model
+runs one batched forward; the d4 views need square images.  Multiscale: the
+model runs once per size offset, and the outputs are resized back and
+reduced.  The model wrappers take a plain callable ``model_fn(x)``.
+Tensors are NCHW.
 """
 
+import warnings
+from functools import partial
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -14,17 +17,43 @@ from ..nn.functional import resize_2d
 from . import functional as F
 
 __all__ = [
+    "GeneralizedTTA",
     "MultiscaleTTA",
+    "TTAWrapper",
+    "d2_image_augment",
+    "d2_image_deaugment",
+    "d2_labels_augment",
+    "d2_labels_deaugment",
+    "d4_image2label",
     "d4_image2mask",
     "d4_image_augment",
     "d4_image_augment_views",
     "d4_image_deaugment",
     "d4_image_deaugment_views",
+    "d4_labels_augment",
+    "d4_labels_deaugment",
+    "fivecrop_image2label",
+    "fivecrop_image_augment",
+    "fivecrop_label_deaugment",
+    "fliplr_image2label",
+    "fliplr_image2mask",
+    "fliplr_image_augment",
+    "fliplr_image_deaugment",
+    "fliplr_labels_augment",
+    "fliplr_labels_deaugment",
+    "flips_image_augment",
+    "flips_image_deaugment",
+    "flips_labels_augment",
+    "flips_labels_deaugment",
+    "flipud_image_augment",
+    "flipud_image_deaugment",
+    "flipud_labels_deaugment",
     "ms_image_augment",
     "ms_image_deaugment",
     "ms_labels_augment",
     "ms_labels_deaugment",
     "split_into_chunks",
+    "tencrop_image2label",
 ]
 
 MaybeStrOrCallable = Optional[Union[str, Callable]]
@@ -57,6 +86,134 @@ def _deaugment_averaging(x: torch.Tensor, reduction: MaybeStrOrCallable) -> torc
     if reduction in {None, "None", "none"}:
         return x
     raise KeyError(f"Unsupported reduction mode {reduction}")
+
+
+def _reduce_chunks(x: torch.Tensor, num_chunks: int, reduction: MaybeStrOrCallable) -> torch.Tensor:
+    return _deaugment_averaging(torch.stack(split_into_chunks(x, num_chunks)), reduction)
+
+
+# ---------------------------------------------------------------------------
+# Crops (classification)
+# ---------------------------------------------------------------------------
+
+
+def fivecrop_image_augment(image: torch.Tensor, crop_size: Tuple[int, int]) -> torch.Tensor:
+    """[B] -> [5B]: the four corner crops and the centre crop."""
+    image_height, image_width = image.shape[2], image.shape[3]
+    crop_height, crop_width = crop_size
+    if crop_height > image_height:
+        raise ValueError(f"Crop height {crop_height} exceeds the image height {image_height}")
+    if crop_width > image_width:
+        raise ValueError(f"Crop width {crop_width} exceeds the image width {image_width}")
+    bottom, right = image_height - crop_height, image_width - crop_width
+    cy, cx = bottom // 2, right // 2
+    return torch.cat([
+        image[:, :, :crop_height, :crop_width],
+        image[:, :, :crop_height, right:],
+        image[:, :, bottom:, :crop_width],
+        image[:, :, bottom:, right:],
+        image[:, :, cy : cy + crop_height, cx : cx + crop_width],
+    ], dim=0)
+
+
+def fivecrop_label_deaugment(logits: torch.Tensor, reduction: MaybeStrOrCallable = "mean") -> torch.Tensor:
+    return _reduce_chunks(logits, 5, reduction)
+
+
+def fivecrop_image2label(model_fn: Callable, image: torch.Tensor, crop_size: Tuple[int, int]) -> torch.Tensor:
+    return fivecrop_label_deaugment(model_fn(fivecrop_image_augment(image, crop_size)))
+
+
+def tencrop_image2label(model_fn: Callable, image: torch.Tensor, crop_size: Tuple[int, int]) -> torch.Tensor:
+    """The five crops and their horizontal flips in one batched forward, averaged."""
+    crops5 = fivecrop_image_augment(image, crop_size)
+    return _reduce_chunks(model_fn(torch.cat([crops5, F.image_fliplr(crops5)], dim=0)), 10, "mean")
+
+
+# ---------------------------------------------------------------------------
+# Flips and d2
+# ---------------------------------------------------------------------------
+
+
+def fliplr_image_augment(image: torch.Tensor) -> torch.Tensor:
+    return torch.cat([image, F.image_fliplr(image)], dim=0)
+
+
+def flipud_image_augment(image: torch.Tensor) -> torch.Tensor:
+    return torch.cat([image, F.image_flipud(image)], dim=0)
+
+
+def fliplr_image_deaugment(image: torch.Tensor, reduction: MaybeStrOrCallable = "mean") -> torch.Tensor:
+    b1, b2 = split_into_chunks(image, 2)
+    return _deaugment_averaging(torch.stack([b1, F.image_fliplr(b2)]), reduction)
+
+
+def flipud_image_deaugment(image: torch.Tensor, reduction: MaybeStrOrCallable = "mean") -> torch.Tensor:
+    b1, b2 = split_into_chunks(image, 2)
+    return _deaugment_averaging(torch.stack([b1, F.image_flipud(b2)]), reduction)
+
+
+def flips_image_augment(image: torch.Tensor) -> torch.Tensor:
+    return torch.cat([image, F.image_fliplr(image), F.image_flipud(image)], dim=0)
+
+
+def flips_image_deaugment(image: torch.Tensor, reduction: MaybeStrOrCallable = "mean") -> torch.Tensor:
+    orig, lr, ud = split_into_chunks(image, 3)
+    return _deaugment_averaging(torch.stack([orig, F.image_fliplr(lr), F.image_flipud(ud)]), reduction)
+
+
+def fliplr_labels_augment(labels: torch.Tensor) -> torch.Tensor:
+    return torch.cat([labels] * 2, dim=0)
+
+
+def flips_labels_augment(labels: torch.Tensor) -> torch.Tensor:
+    return torch.cat([labels] * 3, dim=0)
+
+
+def fliplr_labels_deaugment(logits: torch.Tensor, reduction: MaybeStrOrCallable = "mean") -> torch.Tensor:
+    return _reduce_chunks(logits, 2, reduction)
+
+
+def flipud_labels_deaugment(logits: torch.Tensor, reduction: MaybeStrOrCallable = "mean") -> torch.Tensor:
+    return _reduce_chunks(logits, 2, reduction)
+
+
+def flips_labels_deaugment(logits: torch.Tensor, reduction: MaybeStrOrCallable = "mean") -> torch.Tensor:
+    return _reduce_chunks(logits, 3, reduction)
+
+
+def fliplr_image2label(model_fn: Callable, image: torch.Tensor) -> torch.Tensor:
+    return fliplr_labels_deaugment(model_fn(fliplr_image_augment(image)))
+
+
+def fliplr_image2mask(model_fn: Callable, image: torch.Tensor) -> torch.Tensor:
+    return fliplr_image_deaugment(model_fn(fliplr_image_augment(image)))
+
+
+def d2_image_augment(image: torch.Tensor) -> torch.Tensor:
+    """[B] -> [4B]: identity, fliplr, flipud, fliplr of flipud."""
+    return torch.cat([image, F.image_fliplr(image), F.image_flipud(image), F.image_fliplr(F.image_flipud(image))],
+                     dim=0)
+
+
+def d2_image_deaugment(image: torch.Tensor, reduction: MaybeStrOrCallable = "mean") -> torch.Tensor:
+    b1, b2, b3, b4 = split_into_chunks(image, 4)
+    return _deaugment_averaging(
+        torch.stack([b1, F.image_fliplr(b2), F.image_flipud(b3), F.image_flipud(F.image_fliplr(b4))]), reduction
+    )
+
+
+def d2_labels_augment(labels: torch.Tensor) -> torch.Tensor:
+    return torch.cat([labels] * 4, dim=0)
+
+
+def d2_labels_deaugment(logits: torch.Tensor, reduction: MaybeStrOrCallable = "mean") -> torch.Tensor:
+    return _reduce_chunks(logits, 4, reduction)
+
+
+# ---------------------------------------------------------------------------
+# D4 family
+# ---------------------------------------------------------------------------
 
 
 def _check_square(image: torch.Tensor) -> None:
@@ -110,6 +267,18 @@ def d4_image_augment(image: torch.Tensor) -> torch.Tensor:
 
 def d4_image_deaugment(image: torch.Tensor, reduction: MaybeStrOrCallable = "mean") -> torch.Tensor:
     return d4_image_deaugment_views(image, tuple(range(8)), reduction)
+
+
+def d4_labels_augment(labels: torch.Tensor) -> torch.Tensor:
+    return torch.cat([labels] * 8, dim=0)
+
+
+def d4_labels_deaugment(logits: torch.Tensor, reduction: MaybeStrOrCallable = "mean") -> torch.Tensor:
+    return _reduce_chunks(logits, 8, reduction)
+
+
+def d4_image2label(model_fn: Callable, image: torch.Tensor) -> torch.Tensor:
+    return d4_labels_deaugment(model_fn(d4_image_augment(image)))
 
 
 def d4_image2mask(model_fn: Callable, image: torch.Tensor) -> torch.Tensor:
@@ -182,6 +351,52 @@ def ms_image_deaugment(
     return _deaugment_averaging(torch.stack(deaugmented), reduction)
 
 
+# ---------------------------------------------------------------------------
+# Model wrappers
+# ---------------------------------------------------------------------------
+
+
+class GeneralizedTTA:
+    """Wrap a model callable with augment / deaugment functions.  Each may be
+    a callable (one input, one output), a dict (keyword inputs; the model's
+    dict outputs by key) or a list (positional inputs; the model's outputs
+    in order)."""
+
+    def __init__(
+        self,
+        model_fn: Callable,
+        augment_fn: Union[Callable, Dict[str, Callable], List[Callable]],
+        deaugment_fn: Union[Callable, Dict[str, Callable], List[Callable]],
+    ):
+        self.model_fn = model_fn
+        self.augment_fn = augment_fn
+        self.deaugment_fn = deaugment_fn
+
+    def __call__(self, *input, **kwargs):
+        if isinstance(self.augment_fn, dict):
+            if len(input) != 0:
+                raise ValueError("GeneralizedTTA with a dict augment_fn takes keyword inputs only")
+            outputs = self.model_fn(**{key: augment(kwargs[key]) for key, augment in self.augment_fn.items()})
+        elif isinstance(self.augment_fn, (list, tuple)):
+            if len(kwargs) != 0:
+                raise ValueError("GeneralizedTTA expects a single tensor input here")
+            outputs = self.model_fn(*[augment(x) for x, augment in zip(input, self.augment_fn)])
+        else:
+            if len(input) != 1 or len(kwargs) != 0:
+                raise ValueError("GeneralizedTTA expects a single tensor input here")
+            outputs = self.model_fn(self.augment_fn(input[0]))
+
+        if isinstance(self.deaugment_fn, dict):
+            if not isinstance(outputs, dict):
+                raise ValueError("A dict deaugment_fn needs the model to return a dict")
+            return {key: fn(outputs[key]) for key, fn in self.deaugment_fn.items()}
+        if isinstance(self.deaugment_fn, (list, tuple)):
+            if not isinstance(outputs, (dict, tuple, list)):
+                raise ValueError("A list deaugment_fn needs the model to return a dict/list/tuple")
+            return [fn(value) for value, fn in zip(outputs, self.deaugment_fn)]
+        return self.deaugment_fn(outputs)
+
+
 class MultiscaleTTA:
     """Run the model at several scales and reduce the de-scaled outputs.
     ``deaugment_fn`` may be a dict keyed like the model's dict outputs."""
@@ -211,3 +426,16 @@ class MultiscaleTTA:
             return self.deaugment_fn(ms_outputs, self.size_offsets)
         return {key: self.deaugment_fn[key]([out[key] for out in ms_outputs], size_offsets=self.size_offsets)
                 for key in self.keys}
+
+
+class TTAWrapper:
+    """Deprecated partial application of a TTA function such as
+    ``d4_image2mask``; use ``GeneralizedTTA``."""
+
+    def __init__(self, model_fn: Callable, tta_function: Callable, **kwargs):
+        warnings.warn("TTAWrapper is deprecated. Please use GeneralizedTTA instead", DeprecationWarning, stacklevel=2)
+        self.model_fn = model_fn
+        self.tta = partial(tta_function, **kwargs)
+
+    def __call__(self, *input):
+        return self.tta(self.model_fn, *input)

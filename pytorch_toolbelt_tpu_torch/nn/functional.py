@@ -4,13 +4,19 @@
 
 * bilinear, align_corners=False: half-pixel centres;
 * bilinear, align_corners=True: corner-aligned grid;
-* nearest: torch's legacy rule src = floor(dst * in / out).
+* nearest: torch's legacy rule src = floor(dst * in / out);
+* bicubic: ``jax.image.resize(..., "cubic")``, which the JAX package calls:
+  Keys' cubic with a = -0.5 at half-pixel centres, widened by in / out when
+  it shrinks (antialiasing), taps outside the image dropped and each output
+  sample's weights normalised to sum to 1.  torch's bicubic (a = -0.75,
+  clamped taps, no antialiasing) is another function.
 
 A resize to the input's own size returns the input.
 """
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,12 +50,45 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return F.interpolate(x, size=size, mode="nearest")
 
 
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5 at |x|."""
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
+    return np.where(x >= 2.0, 0.0, np.where(x >= 1.0, far, near))
+
+
+def _cubic_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[out_size, in_size] matrix of ``jax.image.resize``'s cubic resampling
+    along one axis."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(out_size, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    w = _keys_cubic(np.abs(sample[:, None] - np.arange(in_size, dtype=np.float64)[None, :]) / kernel_scale)
+    total = w.sum(axis=1, keepdims=True)
+    return np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps, w / np.where(total != 0, total, 1), 0.0)
+
+
+def _resize_bicubic(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bicubic resize of an NCHW tensor as ``jax.image.resize(.., "cubic")``:
+    two contractions with the axes' weight matrices."""
+    size = (int(size[0]), int(size[1]))
+    if not x.is_floating_point():
+        x = x.float()
+    if size[0] != x.shape[2]:
+        x = torch.matmul(torch.as_tensor(_cubic_weights(x.shape[2], size[0]), dtype=x.dtype, device=x.device), x)
+    if size[1] != x.shape[3]:
+        x = torch.matmul(x, torch.as_tensor(_cubic_weights(x.shape[3], size[1]).T, dtype=x.dtype, device=x.device))
+    return x
+
+
 def resize_2d(
     x: torch.Tensor, size: Tuple[int, int], mode: str = "bilinear", align_corners: bool = False
 ) -> torch.Tensor:
-    """``F.interpolate`` for the modes the JAX package matches to torch."""
+    """Resize an NCHW tensor to ``size`` as the JAX package's ``resize_2d``."""
     if mode == "nearest":
         return resize_nearest(x, size)
     if mode in ("bilinear", "linear"):
         return resize_bilinear(x, size, align_corners=align_corners)
+    if mode == "bicubic":
+        return _resize_bicubic(x, size)
     raise ValueError(f"Unsupported interpolation mode {mode}")

@@ -2,9 +2,12 @@
 
 Coarse -> fine loop: upsample the previous output to the skip's size,
 concatenate, run the stage's block(s).  Returns feature maps fine -> coarse.
+A stage's block input has ``upsample_out_channels(...)`` plus the skip's
+channels: pixel shuffle and the additive upsamples change the count.
 
-``stages`` holds the blocks in creation order, coarsest stage first, which
-is the order flax numbers them (``UnetBlock_0`` is the coarsest stage's).
+``upsamples`` and ``stages`` hold the layers in creation order, coarsest
+stage first, which is the order flax numbers them in (``UnetBlock_0`` is
+the coarsest stage's block, ``DeconvolutionUpsample2d_0`` its upsample).
 """
 
 from typing import List, Sequence, Tuple, Union
@@ -15,10 +18,12 @@ from torch import nn
 from ...core.interfaces import FeatureMapsSpec
 from ...nn.activations import ACT_RELU
 from ...nn.normalization import NORM_BATCH
-from ...nn.unet import UnetBlock
-from ...nn.upsample import UpsampleLayerType, instantiate_upsample_block
+from ...nn.unet import UnetBlock, UnetResidualBlock
+from ...nn.upsample import UpsampleLayerType, instantiate_upsample_block, upsample_out_channels
 
 __all__ = ["UNetDecoder"]
+
+_BLOCKS = {"unet": UnetBlock, "unet_residual": UnetResidualBlock}
 
 
 class UNetDecoder(nn.Module):
@@ -36,8 +41,8 @@ class UNetDecoder(nn.Module):
         num_stages = len(input_spec) - 1
         if len(out_channels) != num_stages:
             raise ValueError(f"out_channels must have length of {num_stages}")
-        if block_type != "unet":
-            raise NotImplementedError(f"block_type {block_type!r} is not ported yet")
+        if block_type not in _BLOCKS:
+            raise ValueError(f"Unknown block_type {block_type!r}; known: {sorted(_BLOCKS)}")
         if isinstance(num_blocks_per_stage, int):
             num_blocks_per_stage = (num_blocks_per_stage,) * num_stages
         if len(num_blocks_per_stage) != num_stages:
@@ -50,13 +55,12 @@ class UNetDecoder(nn.Module):
         for index in range(num_stages):
             block_index = num_stages - index - 1  # coarse -> fine
             scale = input_spec.strides[block_index + 1] // input_spec.strides[block_index]
-            upsamples.append(instantiate_upsample_block(upsample_block, scale_factor=scale))
-            in_ch = prev + input_spec.channels[block_index]
+            upsamples.append(instantiate_upsample_block(upsample_block, scale_factor=scale, in_channels=prev))
+            in_ch = upsample_out_channels(upsample_block, prev, scale) + input_spec.channels[block_index]
             blocks = []
             for _ in range(num_blocks_per_stage[block_index]):
-                blocks.append(
-                    UnetBlock(in_ch, out_channels[block_index], activation=activation, normalization=normalization)
-                )
+                blocks.append(_BLOCKS[block_type](in_ch, out_channels[block_index], activation=activation,
+                                                  normalization=normalization))
                 in_ch = out_channels[block_index]
             stages.append(nn.Sequential(*blocks))
             prev = out_channels[block_index]

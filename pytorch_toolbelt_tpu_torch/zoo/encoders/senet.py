@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.interfaces import FeatureMapsSpec
-from .common import EncoderBase
+from .common import EncoderBase, _bn
 
 __all__ = [
     "SENetBottleneck",
@@ -39,13 +39,6 @@ __all__ = [
     "se_resnext50_encoder",
     "se_resnext101_encoder",
 ]
-
-BN_MOMENTUM = 0.01
-
-
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, momentum=BN_MOMENTUM)
-
 
 def max_pool_ceil(x: torch.Tensor, window: int = 3, stride: int = 2) -> torch.Tensor:
     """2D max pool with ``ceil_mode=True`` (partial trailing windows included)."""

@@ -9,17 +9,15 @@ from torch import nn
 from ...core.interfaces import FeatureMapsSpec
 from ...nn.activations import ACT_RELU
 from ...nn.normalization import NORM_BATCH
-from ...nn.unet import UnetBlock
+from ...nn.unet import UnetBlock, UnetResidualBlock
 from .common import EncoderBase
 
 __all__ = ["UnetEncoder"]
 
 
 class UnetEncoder(EncoderBase):
-    """Double-conv downsampling stack with a channel growth factor.
-
-    ``residual=True`` needs ``UnetResidualBlock``, which is not ported yet.
-    """
+    """Double-conv downsampling stack with a channel growth factor; its
+    blocks are ``UnetResidualBlock``s with ``residual=True``."""
 
     def __init__(
         self,
@@ -33,18 +31,18 @@ class UnetEncoder(EncoderBase):
         pool: str = "max",
     ):
         super().__init__()
-        if residual:
-            raise NotImplementedError("UnetEncoder(residual=True) needs UnetResidualBlock, not ported yet")
         if pool not in ("max", "avg"):
             raise ValueError(f"pool must be 'max' or 'avg', got {pool!r}")
         self.out_channels = out_channels
         self.num_layers = num_layers
         self.growth_factor = growth_factor
         self.pool = pool
+        self.residual = residual
+        block_cls = UnetResidualBlock if residual else UnetBlock
         blocks = []
         prev = in_channels
         for ch in self.feature_channels():
-            blocks.append(UnetBlock(prev, ch, activation=activation, normalization=normalization))
+            blocks.append(block_cls(prev, ch, activation=activation, normalization=normalization))
             prev = ch
         self.blocks = nn.ModuleList(blocks)
 

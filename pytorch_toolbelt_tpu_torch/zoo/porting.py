@@ -5,40 +5,49 @@
 numpy arrays, so the port needs no jax, and fills the matching torch module:
 
 * conv kernel HWIO -> OIHW (``.transpose(3, 2, 0, 1)``), conv bias copied;
+  a grouped conv's kernel is HWIO with I = in / groups, and the same
+  transpose gives torch's ``[O, I / groups, kh, kw]``;
+* ``ConvTranspose`` kernel HWIO -> torch's IOHW, flipped in space: flax's
+  transposed conv correlates the dilated input with the kernel as it is,
+  torch's with the kernel flipped;
 * BatchNorm ``scale/bias`` -> ``weight/bias`` and ``batch_stats``
-  ``mean/var`` -> ``running_mean/running_var``; GroupNorm ``scale/bias``.
-  A ``Normalization`` wrapper keeps its flax child scope (``BatchNorm_0``);
-  a plain ``nn.BatchNorm2d`` (the SENet's) sits directly under its name.
+  ``mean/var`` -> ``running_mean/running_var``; GroupNorm ``scale/bias``;
+  PReLU ``alpha`` -> ``weight``.
 
-Flax names submodules by class and creation order unless the module names
-them.  The UNet decoder creates its blocks coarsest stage first, so
-``UNetDecoder_0/UnetBlock_0`` is the coarsest stage's block, which is also
-``decoder.stages[0]`` here.  The SENet names its layers (``layer0_conv1``,
-``layer{s}_{i}/conv1``, ``.../se/se_fc1``).  The FPN decoder's convs are
-``Conv_0..Conv_{L-1}``, the laterals fine -> coarse, then one prediction conv
-per fused level, the second-coarsest first.  A grouped conv's kernel is HWIO
-with I = in / groups, and the same transpose gives torch's
-``[O, I / groups, kh, kw]``.
+Flax names a submodule by its class and creation order (``Conv_0``,
+``BatchNorm_1``, ``UnetResidualBlock_2``), one counter per class, unless
+the module names it.  The port's modules register their children in the
+order flax creates them, so by default a module's children, with
+``nn.Sequential`` and ``nn.ModuleList`` flattened, are named that way:
+``Conv2d`` is ``Conv``, ``ConvTranspose2d`` ``ConvTranspose``,
+``BatchNorm2d`` ``BatchNorm``, any other module its class name.  A
+``UnetResidualBlock`` with a shortcut conv has it as ``Conv_0``, created
+before its 3x3 convs; the UNet decoder's upsample layers and blocks are
+numbered coarsest stage first.  The exceptions are named here: the
+composite models' and ``GenericEncoder``'s attributes, the SENet's own
+names (``layer0_conv1``, ``layer{s}_{i}/conv1``, ``.../se/se_fc1``) and the
+FPN decoder's ``Conv_0..Conv_{L-1}`` (the laterals fine -> coarse, then one
+prediction conv per fused level, the second-coarsest first).
 """
 
-from typing import Callable, Dict, Iterator, Mapping, Tuple
+from typing import Callable, Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..nn.normalization import Normalization
-from ..nn.unet import UnetBlock
 from .decoders.fpn import FPNDecoder
-from .decoders.unet import UNetDecoder
+from .encoders.common import GenericEncoder
 from .encoders.senet import SENetBottleneck, SENetEncoder, SEModule
-from .encoders.unet import UnetEncoder
-from .heads.resize import ResizeHead
 from .models import EncoderDecoderModel, UNetSegmentationModel
 
 __all__ = ["load_flax_variables"]
 
 _Leaf = Tuple[str, Tuple[str, ...], torch.Tensor, Callable[[np.ndarray], np.ndarray]]
+
+# flax's class name of the torch modules whose flax counterpart is a flax layer
+_FLAX_CLASS = ((nn.Conv2d, "Conv"), (nn.ConvTranspose2d, "ConvTranspose"), (nn.BatchNorm2d, "BatchNorm"),
+               (nn.GroupNorm, "GroupNorm"))
 
 
 def _same(a: np.ndarray) -> np.ndarray:
@@ -49,21 +58,41 @@ def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
     return a.transpose(3, 2, 0, 1)
 
 
+def _flax_transpose_kernel(a: np.ndarray) -> np.ndarray:
+    return a[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def _flax_class(module: nn.Module) -> str:
+    for cls, name in _FLAX_CLASS:
+        if isinstance(module, cls):
+            return name
+    return type(module).__name__
+
+
+def _flat(modules) -> Iterator[nn.Module]:
+    for module in modules:
+        if isinstance(module, (nn.Sequential, nn.ModuleList)):
+            yield from _flat(module)
+        else:
+            yield module
+
+
+def _numbered(modules) -> List[Tuple[str, nn.Module]]:
+    """Name ``modules`` as flax names the submodules it creates in this order."""
+    counts: Dict[str, int] = {}
+    named = []
+    for module in _flat(modules):
+        cls = _flax_class(module)
+        named.append((f"{cls}_{counts.get(cls, 0)}", module))
+        counts[cls] = counts.get(cls, 0) + 1
+    return named
+
+
 def _children(module: nn.Module):
-    if isinstance(module, UNetSegmentationModel):
-        return [("UnetEncoder_0", module.encoder), ("UNetDecoder_0", module.decoder), ("ResizeHead_0", module.head)]
-    if isinstance(module, EncoderDecoderModel):
+    if isinstance(module, EncoderDecoderModel) and not isinstance(module, UNetSegmentationModel):
         return [("encoder", module.encoder), ("decoder", module.decoder), ("head", module.head)]
-    if isinstance(module, UnetEncoder):
-        return [(f"UnetBlock_{i}", block) for i, block in enumerate(module.blocks)]
-    if isinstance(module, UNetDecoder):
-        blocks = [block for stage in module.stages for block in stage]
-        return [(f"UnetBlock_{i}", block) for i, block in enumerate(blocks)]
-    if isinstance(module, UnetBlock):
-        return [("Conv_0", module.conv1), ("Normalization_0", module.norm1),
-                ("Conv_1", module.conv2), ("Normalization_1", module.norm2)]
-    if isinstance(module, ResizeHead):
-        return [("Conv_0", module.conv)]
+    if isinstance(module, GenericEncoder):
+        return [("backbone", module.backbone)]
     if isinstance(module, SENetEncoder):
         stem = [(f"layer0_{name}", child) for name, child in module.layer0.named_children()
                 if not isinstance(child, nn.ReLU)]
@@ -79,29 +108,25 @@ def _children(module: nn.Module):
     if isinstance(module, FPNDecoder):
         convs = list(module.lateral) + [p for p in module.predict if isinstance(p, nn.Conv2d)]
         return [(f"Conv_{i}", conv) for i, conv in enumerate(convs)]
-    raise NotImplementedError(f"no flax layout known for {type(module).__name__}")
+    return _numbered(module.children())
 
 
 def _leaves(module: nn.Module, path: Tuple[str, ...]) -> Iterator[_Leaf]:
-    if isinstance(module, nn.Conv2d):
-        yield "params", path + ("kernel",), module.weight, _hwio_to_oihw
+    if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
+        kernel = _flax_transpose_kernel if isinstance(module, nn.ConvTranspose2d) else _hwio_to_oihw
+        yield "params", path + ("kernel",), module.weight, kernel
         if module.bias is not None:
             yield "params", path + ("bias",), module.bias, _same
         return
-    if isinstance(module, nn.BatchNorm2d):
+    if isinstance(module, (nn.BatchNorm2d, nn.GroupNorm)):
         yield "params", path + ("scale",), module.weight, _same
         yield "params", path + ("bias",), module.bias, _same
-        yield "batch_stats", path + ("mean",), module.running_mean, _same
-        yield "batch_stats", path + ("var",), module.running_var, _same
+        if isinstance(module, nn.BatchNorm2d):
+            yield "batch_stats", path + ("mean",), module.running_mean, _same
+            yield "batch_stats", path + ("var",), module.running_var, _same
         return
-    if isinstance(module, Normalization):
-        norm = module.norm
-        if isinstance(norm, nn.BatchNorm2d):
-            yield from _leaves(norm, path + ("BatchNorm_0",))
-        elif isinstance(norm, nn.GroupNorm):
-            scope = path + ("GroupNorm_0",)
-            yield "params", scope + ("scale",), norm.weight, _same
-            yield "params", scope + ("bias",), norm.bias, _same
+    if isinstance(module, nn.PReLU):
+        yield "params", path + ("alpha",), module.weight, _same
         return
     for name, child in _children(module):
         yield from _leaves(child, path + (name,))

@@ -17,7 +17,12 @@ import torch
 from pytorch_toolbelt_tpu.nn import activations as JA
 from pytorch_toolbelt_tpu.zoo import UNetSegmentationModel as JUNet
 from pytorch_toolbelt_tpu_torch.core import FeatureMapsSpec
-from pytorch_toolbelt_tpu_torch.nn import Normalization, instantiate_upsample_block
+from pytorch_toolbelt_tpu_torch.nn import (
+    NearestNeighborResizeLayer,
+    Normalization,
+    UnetResidualBlock,
+    instantiate_upsample_block,
+)
 from pytorch_toolbelt_tpu_torch.nn import activations as TA
 from pytorch_toolbelt_tpu_torch.zoo import UnetEncoder
 from pytorch_toolbelt_tpu_torch.zoo import UNetSegmentationModel, fuse_unet_inference, load_flax_variables
@@ -179,9 +184,11 @@ def test_group_norm_unet_bridges_and_matches_flax():
 
 @pytest.mark.parametrize("name", sorted(TA._ACTIVATIONS))
 def test_activations_match_jax(name):
-    x = np.linspace(-6.0, 6.0, 97, dtype=np.float32)
+    """glu and softmax act on the channels: the last axis of NHWC in JAX,
+    dim 1 of NCHW here."""
+    x = np.linspace(-6.0, 6.0, 96, dtype=np.float32).reshape(1, 4, 3, 8)
     want = np.asarray(JA.instantiate_activation_block(name)(jnp.asarray(x)))
-    got = TA.instantiate_activation_block(name)(torch.from_numpy(x)).numpy()
+    got = _nhwc(TA.instantiate_activation_block(name)(torch.from_numpy(x.transpose(0, 3, 1, 2).copy())))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
@@ -191,6 +198,8 @@ def test_leaky_relu_slope_and_unknown_names():
     got = TA.instantiate_activation_block("leaky_relu", slope=0.2)(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6)
     with pytest.raises(KeyError):
+        TA.get_activation_fn("no_such_activation")
+    with pytest.raises(ValueError, match="parametric"):
         TA.get_activation_fn("prelu")
 
 
@@ -204,7 +213,7 @@ def test_feature_maps_spec_and_encoder_spec():
     assert encoder.channels == (8, 16, 32) and encoder.strides == (1, 2, 4)
     maps = encoder(torch.zeros(1, 3, 16, 16))
     assert [tuple(m.shape) for m in maps] == [(1, 8, 16, 16), (1, 16, 8, 8), (1, 32, 4, 4)]
-    with pytest.raises(NotImplementedError):
-        UnetEncoder(residual=True)
-    with pytest.raises(NotImplementedError):
-        instantiate_upsample_block("nearest")
+    residual = UnetEncoder(out_channels=8, num_layers=3, residual=True)
+    assert all(isinstance(block, UnetResidualBlock) for block in residual.blocks)
+    assert [tuple(m.shape) for m in residual(torch.zeros(1, 3, 16, 16))] == [tuple(m.shape) for m in maps]
+    assert isinstance(instantiate_upsample_block("nearest"), NearestNeighborResizeLayer)
