@@ -10,8 +10,10 @@ main path, then drives the main paths through the entry points a user calls -- t
 inference with d4 test-time augmentation in both modes, the BASELINE
 config-4 loss suite, streaming tiled inference of SEResNeXt50-FPN through
 ``TileMerger(use_pallas=True)``, config 3's d4 + multiscale TTA, a
-ResNet34-UNet through tiled d4 inference, and pad -> d2 TTA -> unpad on one
-image -- and holds each against an independent plain path.  Weights and
+ResNet34-UNet through tiled d4 inference, pad -> d2 TTA -> unpad on one
+image, config 5's strip-sharded tiled inference under an nccl process
+group, an ensemble and 3D tiles -- and holds each against an independent
+plain path.  Weights and
 data are random, made from a seed.
 
 Phases, each printed on its own line:
@@ -92,7 +94,28 @@ Phases, each printed on its own line:
  13. pad -> d2 TTA -> unpad: ``pad_image_tensor`` of one 1000^2 image to
      1024^2, ``GeneralizedTTA(d2_image_augment, d2_image_deaugment)`` over
      the ResNet34-UNet in bf16, ``unpad_image_tensor``; against four flips
-     of the fp32 model written here; ms per call.
+     of the fp32 model written here; ms per call;
+ 14. BASELINE config 5: a 10000^2 image through ``tiled_apply_sharded``
+     (UNet-32 fused, bf16 convs, fp32 canvas, 512/256 pyramid tiles, d4
+     ``distributed``, batch 32) under a real nccl group of world size 1
+     (``DistributedGuard`` with a ``file://`` store): the strips canvas
+     against ``tiled_apply_d4_tta`` bit for bit, its wall time, MP/s, peak
+     memory, K2's and K1's launches by route (K1: one, on the cell route)
+     and, under ``torch.profiler``, the idle share and device time by kind;
+     the four strips of a world of 4 computed one after another, each
+     strip's wall, peak memory, tiles and K1 route, concatenated against
+     world 1 bit for bit; the replicated canvas (K3 per batch +
+     ``all_reduce``) against the strips within 1e-5 * max, its K3 launches,
+     wall and peak memory; a pixelwise 19-channel head's peak memory at
+     world 1 against one strip of four, a 100x100 window of each against
+     the head's direct output; K1 alone at the 10000^2 shape (1521 fp32
+     tiles), bit for bit and timed beside its bound, the plain version and
+     ``F.fold``;
+ 15. the rest of ``inference/``: ``Ensembler`` of two UNet-32s as the model
+     of ``tiled_apply_d4_tta`` at 2048^2 against the mean of the two fp32
+     plain paths; ``tiled_apply_3d`` of a Conv3d net over a [1, 128, 512,
+     512] volume at 64/32 against a plain tile-by-tile path, and of a
+     pointwise Conv3d against its direct output; ms per call.
 
 Device times are medians over five windows of CUDA events; each phase
 prints the spread (min-max) of its kernel's windows beside the median.
@@ -152,9 +175,21 @@ RESIDUAL_BN_SCALE = 0.25  # see config3_model
 UNET34_DECODER = (32, 64, 128, 256)
 UNET34_SIZE, UNET34_CHECK_SIZE = 5000, 2048  # the timed run; the bf16 path against the fp32 plain path
 PAD_SIZE, PAD_TARGET = 1000, 1024  # one image, padded to a multiple of 32
+# BASELINE config 5 (benchmarks/configs_bench.py:104-136): UNet-32, one class, 512/256 pyramid tiles,
+# d4 "distributed", batch 32, a 10000^2 image; four strips computed one after another on the one card
+CONFIG5_SIZE, CONFIG5_BATCH, CONFIG5_STRIPS = 10000, 32, 4
+REPLICATED_TOL = 1e-5  # the replicated canvas against the strips, relative to max|strips|: fp32 sums in another order
+WINDOW_TOL = 1e-4  # the K = 19 pixelwise head's tiled output against its direct output
+# Phase 15: an ensemble of two UNet-32s at 2048^2; tiled_apply_3d of a small Conv3d net
+ENSEMBLE_SIZE = 2048
+VOLUME_SHAPE, VOXEL_TILE, VOXEL_STEP, VOXEL_BATCH = (1, 128, 512, 512), 64, 32, 32
+VOLUME_TOL = 1e-5  # against the plain tile-by-tile path, relative to max|ref|
 # (kind, pattern of the kernel names) for phase 12's device time; the first match counts
 DEVICE_KINDS = (("K1", r"grid_merge"), ("cuDNN convs", r"xmma|cutlass|cudnn|fprop|dgrad|convolve"),
                 ("BatchNorm", r"batch_norm"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"))
+# and for phase 14's (the fused UNet-32 of config 5)
+CONFIG5_KINDS = (("K1", r"grid_merge"), ("K2", r"conv3x3"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"),
+                 ("max pooling", r"max_pool"))
 
 
 def log(msg: str) -> None:
@@ -1217,6 +1252,27 @@ def _device_ms_by_name(prof) -> dict:
     return by_name
 
 
+def _log_profile_by_kind(what: str, fn, kinds, smi, top: int) -> None:
+    """Run ``fn`` once under torch.profiler; log its idle share, device time
+    by (kind, pattern of the kernel names) of ``kinds`` (the first match
+    counts; the rest are "other elementwise and copies") and its ``top``
+    kernels."""
+    wall_ms, busy, by_name = _profiled(fn)
+    if busy == 0:
+        log(f"{what}: device time not measured (the profiler saw no CUDA events)")
+        return
+    totals = {}
+    for name, ms in by_name.items():
+        kind = next((k for k, pattern in kinds if re.search(pattern, name)), "other elementwise and copies")
+        totals[kind] = totals.get(kind, 0.0) + ms
+    by_kind = sorted(totals.items(), key=lambda kv: -kv[1])
+    log(f"{what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms (idle {1 - busy / wall_ms:.1%}); device time by "
+        "kind: " + ", ".join(f"{k} {ms:.2f} ms ({ms / busy:.1%})" for k, ms in by_kind) + f" ({smi})")
+    label = what.split()[0]
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"{label}   device {ms:8.2f} ms  {name[:100]}")
+
+
 def _profiled(fn):
     """Run ``fn`` once under ``torch.profiler``: (wall ms to a synchronize,
     device busy ms, device ms by kernel name)."""
@@ -1378,7 +1434,7 @@ def resnet34_unet(dev):
     return model, copy.deepcopy(model).to(torch.bfloat16)
 
 
-def _k1_at(stack, weight, grid, out_hw, offset, smi):
+def _k1_at(stack, weight, grid, out_hw, offset, smi, phase="[12]"):
     """K1 alone at a main path's shape: bit for bit against the plain
     version, then its ms beside its bound, the plain version and F.fold, per
     output type."""
@@ -1398,7 +1454,7 @@ def _k1_at(stack, weight, grid, out_hw, offset, smi):
         ms = cuda_ms(lambda: grid_merge(stack, weight, grid, out_hw, offset, out_dtype=out_dtype))
         plain_ms = cuda_ms(lambda: grid_merge_reference(stack, weight, grid, out_hw, offset, out_dtype=out_dtype),
                            reps=1, windows=3)
-        log(f"[12] grid_merge {n} fp32 tiles [{k}, {th}, {tw}] -> {out_hw[0]}x{out_hw[1]}, {str(out_dtype)[6:]} out: "
+        log(f"{phase} grid_merge {n} fp32 tiles [{k}, {th}, {tw}] -> {out_hw[0]}x{out_hw[1]}, {str(out_dtype)[6:]} out: "
             f"max|err| {err:.3e} <= {MERGE_TOL:.0e} ok; {ms} ({nbytes / ms / 1e6:.0f} GB/s of {nbytes / 1e6:.1f} MB "
             f"compulsory, {bound / ms:.0%} of the bound {bound:.4f} ms ({bound_by})); reference {plain_ms:.3f} ms "
             f"({smi})")
@@ -1406,7 +1462,7 @@ def _k1_at(stack, weight, grid, out_hw, offset, smi):
     fold_ms = cuda_ms(lambda: F.fold(cols, ((ty - 1) * sh + th, (tx - 1) * sw + tw), (th, tw), stride=(sh, sw)),
                       reps=2)
     del cols
-    log(f"[12] F.fold of the {n} weighted tiles (overlap-add only, no division, no crop): {fold_ms} ({smi})")
+    log(f"{phase} F.fold of the {n} weighted tiles (overlap-add only, no division, no crop): {fold_ms} ({smi})")
 
 
 @torch.no_grad()
@@ -1469,20 +1525,7 @@ def phase_resnet34_unet(dev, smi, model, model_bf16):
     for route, n in by_route.items():
         launches["grid_merge_by_route"][route] += n
 
-    wall_ms, busy, by_name = _profiled(run)
-    if busy == 0:
-        log(f"[12] profiled {UNET34_SIZE}^2 distributed run: device time not measured (the profiler saw no CUDA events)")
-    else:
-        kinds = {}
-        for name, ms in by_name.items():
-            kind = next((k for k, pattern in DEVICE_KINDS if re.search(pattern, name)), "other elementwise and copies")
-            kinds[kind] = kinds.get(kind, 0.0) + ms
-        log(f"[12] profiled {UNET34_SIZE}^2 distributed run: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-            f"(idle {1 - busy / wall_ms:.1%}); device time by kind: "
-            + ", ".join(f"{k} {ms:.2f} ms ({ms / busy:.1%})" for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]))
-            + f" ({smi})")
-        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-            log(f"[12]   device {ms:8.2f} ms  {name[:100]}")
+    _log_profile_by_kind(f"[12] profiled {UNET34_SIZE}^2 distributed run", run, DEVICE_KINDS, smi, top=10)
 
     slicer = ImageSlicer((UNET34_SIZE, UNET34_SIZE), TILE, STEP, weight="pyramid")
     ty, tx = ((t - TILE) // STEP + 1 for t in slicer.target_shape)
@@ -1535,6 +1578,222 @@ def phase_pad_d2(dev, smi, model, model_bf16):
     log(f"[13] pad -> d2 TTA -> unpad bf16: {ms} per call ({smi})")
 
 
+def config5_head(x):
+    """A cheap pixelwise 19-channel head: the memory is in the stack and the canvas."""
+    return torch.cat([x, x * 2.0, x * x, -x, x + 1.0, x * 0.5, x.flip(1)], dim=1)[:, :CLASSES]
+
+
+class _CountedViews:
+    """A model function that counts the images it is given."""
+
+    def __init__(self, fn):
+        self.fn, self.images = fn, 0
+
+    def __call__(self, x):
+        self.images += len(x)
+        return self.fn(x)
+
+
+@torch.no_grad()
+def phase_config5(dev, smi, fused):
+    """BASELINE config 5 through ``tiled_apply_sharded`` under a real nccl
+    group of world size 1: the strips canvas against the single-chip call
+    bit for bit, timed and profiled; four strips one after another against
+    it bit for bit; the replicated canvas (K3 + all_reduce) against it; the
+    K = 19 memory of world 1 against one strip of four; K1 alone at the
+    10000^2 shape.  Returns the launches of K2, K1 and K3 in its runs."""
+    import tempfile
+
+    from pytorch_toolbelt_tpu_torch.distributed import DistributedGuard, get_world_size, read_sharded_window
+    from pytorch_toolbelt_tpu_torch.distributed import tiled_apply_sharded
+    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, tiled_apply_d4_tta
+    from pytorch_toolbelt_tpu_torch.ops import accumulate_tiles, conv3x3, grid_merge
+
+    size, mp = CONFIG5_SIZE, CONFIG5_SIZE**2 / 1e6
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    image = torch.rand(3, size, size, device=dev, generator=gen)
+    kw = dict(tile_size=TILE, tile_step=STEP, weight="pyramid", batch_size=CONFIG5_BATCH)
+
+    def model(x):  # config 5 returns the fp32 canvas, as the JAX pipeline does
+        return fused(x).float()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+    launches = {"grid_merge": 0, "grid_merge_by_route": dict.fromkeys(grid_merge.launches_by_route, 0),
+                "scatter_merge": 0}
+
+    def add_merge_launches():
+        launches["grid_merge"] += grid_merge.launches
+        for route, n in grid_merge.launches_by_route.items():
+            launches["grid_merge_by_route"][route] += n
+
+    with tempfile.TemporaryDirectory() as tmp, DistributedGuard(f"file://{tmp}/store", world_size=1, rank=0,
+                                                                backend="nccl", timeout_s=300):
+        if torch.distributed.get_backend() != "nccl" or get_world_size() != 1:
+            raise AssertionError("phase 14 needs an nccl group of world size 1")
+        single = tiled_apply_d4_tta(model, image, mode="distributed", **kw)
+        run = lambda **extra: tiled_apply_sharded(model, image, d4_tta="distributed", **kw, **extra)  # noqa: E731
+        run()  # warm-up
+        _reset_conv_counts()
+        _reset_merge_counts()
+        strips, wall, peak = timed(run)
+        log(f"[14] config 5: tiled_apply_sharded {size}^2 strips, nccl world 1, d4 distributed batch={CONFIG5_BATCH}, "
+            f"UNet-32 fused bf16, fp32 canvas: {wall:.3f} s, {mp / wall:.2f} MP/s, peak {peak:.2f} GiB allocated; "
+            f"K2 launches by route {dict(conv3x3.launches_by_route)}, K1 {dict(grid_merge.launches_by_route)} ({smi})")
+        _check_conv_routes("[14] world 1 strips")
+        _check_merge_routes("[14] world 1 strips", 1)
+        launches["conv3x3"], launches["conv3x3_by_route"] = conv3x3.launches, dict(conv3x3.launches_by_route)
+        add_merge_launches()
+        ok = strips.shape == (1, size, size) and bool(torch.isfinite(strips).all()) and torch.equal(strips, single)
+        log(f"[14] world 1 strips vs tiled_apply_d4_tta(mode='distributed', batch_size={CONFIG5_BATCH}): "
+            f"{'bit for bit' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the world-1 strips differ from the single-chip tiled_apply_d4_tta")
+        del single
+
+        _log_profile_by_kind("[14] profiled world-1 strips run", run, CONFIG5_KINDS, smi, top=8)
+
+        slicer = ImageSlicer((size, size), TILE, STEP, weight="pyramid")
+        ty, tx = ((t - TILE) // STEP + 1 for t in slicer.target_shape)
+        parts, tiles_run, total_wall = [], 0, 0.0
+        for d in range(CONFIG5_STRIPS):
+            counted = _CountedViews(model)
+            _reset_merge_counts()
+            part, wall_d, peak_d = timed(lambda: tiled_apply_sharded(counted, image, d4_tta="distributed", rank=d,
+                                                                     world_size=CONFIG5_STRIPS, **kw))
+            _check_merge_routes(f"[14] strip {d} of {CONFIG5_STRIPS}", 1)
+            add_merge_launches()
+            tiles_d = counted.images // 2  # two d4 views per tile
+            tiles_run, total_wall = tiles_run + tiles_d, total_wall + wall_d
+            log(f"[14] strip {d} of {CONFIG5_STRIPS}: rows {tuple(part.shape[1:])}, {tiles_d} tiles "
+                f"({tiles_d // tx} tile rows), {wall_d:.3f} s, peak {peak_d:.2f} GiB allocated, K1 "
+                f"{dict(grid_merge.launches_by_route)} ({smi})")
+            parts.append(part)
+        four = torch.cat(parts, dim=1)
+        del parts
+        ok = torch.equal(four, strips)
+        log(f"[14] {CONFIG5_STRIPS} strips one after another: {total_wall:.3f} s ({total_wall / wall:.2f}x world 1), "
+            f"{tiles_run // tx} tile rows run against {ty} ({tiles_run} tiles against {ty * tx}, "
+            f"{tiles_run / (ty * tx) - 1:.1%} duplicated); concatenated vs world 1: {'bit for bit' if ok else 'FAIL'}")
+        if not ok:
+            bad = (four != strips).nonzero()
+            raise AssertionError(f"the {CONFIG5_STRIPS} strips differ from world 1 at {bad.shape[0]} pixels, "
+                                 f"first at {bad[0].tolist()}: a tile's output depends on its batch")
+        del four
+
+        rep_run = lambda: run(canvas="replicated")  # noqa: E731
+        rep_run()  # warm-up: the plan's inverse norm is computed on the host once
+        accumulate_tiles.launches = 0
+        replicated, wall_r, peak_r = timed(rep_run)
+        launches["scatter_merge"] += accumulate_tiles.launches
+        err = float((replicated - strips).abs().max())
+        tol = REPLICATED_TOL * float(strips.abs().max())
+        ok = replicated.shape == strips.shape and err <= tol
+        log(f"[14] replicated canvas, nccl world 1: {wall_r:.3f} s, {mp / wall_r:.2f} MP/s, peak {peak_r:.2f} GiB "
+            f"allocated, K3 launches {accumulate_tiles.launches}; vs strips max|err| {err:.3e} <= {tol:.3e} "
+            f"{'ok' if ok else 'FAIL'} ({smi})")
+        if not ok or accumulate_tiles.launches == 0:
+            raise AssertionError("the replicated canvas disagrees with the strips or never launched K3")
+        del replicated, strips
+
+        c = size // 2  # an interior 100x100 window from the centre
+        want = config5_head(image[None, :, c : c + 100, c : c + 100])[0]
+        whole, wall_19, peak_19 = timed(lambda: tiled_apply_sharded(config5_head, image, **kw))
+        err_whole = float((whole[:, c : c + 100, c : c + 100] - want).abs().max())
+        del whole
+        rank = c // -(-size // CONFIG5_STRIPS)
+        strip, wall_s19, peak_s19 = timed(lambda: tiled_apply_sharded(config5_head, image, rank=rank,
+                                                                      world_size=CONFIG5_STRIPS, **kw))
+        got = read_sharded_window(strip, c, c + 100, c, c + 100, rank=rank, world_size=CONFIG5_STRIPS,
+                                  image_height=size)
+        err_strip = float((got - want).abs().max())
+        del strip
+        ok = max(err_whole, err_strip) <= WINDOW_TOL
+        log(f"[14] K = {CLASSES} pixelwise head, no TTA: world 1 {wall_19:.3f} s, peak {peak_19:.2f} GiB allocated; "
+            f"strip {rank} of {CONFIG5_STRIPS} {wall_s19:.3f} s, peak {peak_s19:.2f} GiB allocated; window "
+            f"[{c}:{c + 100}]^2 vs the head's direct output: max|err| {err_whole:.3e} (world 1), {err_strip:.3e} "
+            f"(read_sharded_window of the strip) <= {WINDOW_TOL:.0e} {'ok' if ok else 'FAIL'} ({smi})")
+        if not ok:
+            raise AssertionError("the K = 19 head's tiled output disagrees with its direct output")
+    if torch.distributed.is_initialized():
+        raise AssertionError("DistributedGuard left the process group alive")
+
+    stack = torch.randn(ty * tx, 1, TILE, TILE, device=dev, generator=gen)
+    weight = torch.as_tensor(slicer.weight.astype(np.float32), device=dev)
+    _k1_at(stack, weight, (ty, tx, STEP, STEP), (size, size), (slicer.margin_top, slicer.margin_left), smi, "[14]")
+    return launches
+
+
+@torch.no_grad()
+def plain_tiled_3d(net, volume, size, step):
+    """Plain path: tile by tile through the module, float64 merge."""
+    from pytorch_toolbelt_tpu_torch.inference import VolumeSlicer
+
+    slicer = VolumeSlicer(volume.shape[1:], size, step, weight="pyramid")
+    padded = F.pad(volume, (slicer.margin_left, slicer.margin_right, slicer.margin_top, slicer.margin_bottom,
+                            slicer.margin_front, slicer.margin_back))
+    weight = torch.as_tensor(slicer.weight, dtype=torch.float64, device=volume.device)
+    canvas = norm = None
+    for z, y, x, d, h, w in slicer.crops:
+        pred = net(padded[None, :, z : z + d, y : y + h, x : x + w])[0].double()
+        if canvas is None:
+            canvas = torch.zeros((pred.shape[0],) + slicer.target_shape, dtype=torch.float64, device=volume.device)
+            norm = torch.zeros(slicer.target_shape, dtype=torch.float64, device=volume.device)
+        canvas[:, z : z + d, y : y + h, x : x + w] += pred * weight
+        norm[z : z + d, y : y + h, x : x + w] += weight
+    return slicer.crop_to_original_size(canvas / norm).float()
+
+
+@torch.no_grad()
+def phase_ensemble_3d(dev, smi, model, fused):
+    """The rest of inference/: an Ensembler of two fused UNet-32s as the
+    model of tiled d4 inference at 2048^2, and tiled_apply_3d of a small
+    Conv3d net over a [1, 128, 512, 512] volume."""
+    from pytorch_toolbelt_tpu_torch.inference import Ensembler, tiled_apply_3d, tiled_apply_d4_tta
+    from pytorch_toolbelt_tpu_torch.zoo import fuse_unet_inference
+
+    model_b = seeded_unet(SEED + 17, dev)
+    ensemble = Ensembler([fused, fuse_unet_inference(model_b)])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    image = torch.rand(3, ENSEMBLE_SIZE, ENSEMBLE_SIZE, device=dev, generator=gen)
+    run = lambda: tiled_apply_d4_tta(ensemble, image, TILE, STEP, batch_size=DIST_BATCH, mode="distributed")  # noqa: E731
+    got = run().float()
+    ref = (plain_tiled_d4(model, image, "distributed") + plain_tiled_d4(model_b, image, "distributed")) / 2
+    err, tol = float((got - ref).abs().max()), PATH_TOL * float(ref.abs().max())
+    ok = got.shape == ref.shape and bool(torch.isfinite(got).all()) and err <= tol
+    ms = cuda_ms(run, reps=1, windows=3)
+    log(f"[15] Ensembler of two fused UNet-32s in tiled_apply_d4_tta {ENSEMBLE_SIZE}^2 distributed batch={DIST_BATCH}: "
+        f"vs the mean of the two fp32 plain paths max|err| {err:.3e} <= {tol:.3e} {'ok' if ok else 'FAIL'}; "
+        f"{ms} per call ({smi})")
+    if not ok:
+        raise AssertionError("the ensemble's tiled output disagrees with the plain paths")
+    del got, ref, model_b, ensemble
+
+    torch.manual_seed(SEED + 19)
+    net = torch.nn.Sequential(torch.nn.Conv3d(1, 8, 3, padding=1), torch.nn.ReLU(), torch.nn.Conv3d(8, 2, 1))
+    pointwise = torch.nn.Conv3d(1, 2, 1)
+    net, pointwise = net.to(dev).eval(), pointwise.to(dev).eval()
+    volume = torch.rand(*VOLUME_SHAPE, device=dev, generator=gen)
+    for name, fn, want in (("Conv3d 3^3 net", net, lambda: plain_tiled_3d(net, volume, VOXEL_TILE, VOXEL_STEP)),
+                           ("pointwise Conv3d", pointwise, lambda: pointwise(volume[None])[0])):
+        run = lambda fn=fn: tiled_apply_3d(fn, volume, VOXEL_TILE, VOXEL_STEP, batch_size=VOXEL_BATCH)  # noqa: E731
+        got, ref = run(), want()
+        err, tol = float((got - ref).abs().max()), VOLUME_TOL * float(ref.abs().max())
+        ok = got.shape == ref.shape and bool(torch.isfinite(got).all()) and err <= tol
+        ms = cuda_ms(run, reps=1, windows=3)
+        log(f"[15] tiled_apply_3d {name} over {list(VOLUME_SHAPE)} at {VOXEL_TILE}/{VOXEL_STEP} batch={VOXEL_BATCH}: "
+            f"vs {'the plain tile-by-tile path' if fn is net else 'its direct output'} max|err| {err:.3e} <= "
+            f"{tol:.3e} {'ok' if ok else 'FAIL'}; {ms} per call ({smi})")
+        if not ok:
+            raise AssertionError(f"tiled_apply_3d with the {name} disagrees with its reference")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1571,6 +1830,17 @@ def main() -> int:
     for route, n in unet34["grid_merge_by_route"].items():
         launches["grid_merge_by_route"][route] += n
     phase_pad_d2(dev, smi, model34, model34_bf16)
+    del model34, model34_bf16
+    torch.cuda.empty_cache()
+    config5 = phase_config5(dev, smi, fused)
+    launches["conv3x3"] += config5["conv3x3"]
+    for route, n in config5["conv3x3_by_route"].items():
+        launches["conv3x3_by_route"][route] += n
+    launches["grid_merge"] += config5["grid_merge"]
+    for route, n in config5["grid_merge_by_route"].items():
+        launches["grid_merge_by_route"][route] += n
+    scatter_launches += config5["scatter_merge"]
+    phase_ensemble_3d(dev, smi, model, fused)
 
     kernels = [
         {"name": "conv3x3", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/conv3x3_wgmma.cuh",

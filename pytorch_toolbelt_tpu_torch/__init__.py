@@ -6,16 +6,18 @@ become CUDA kernels written for Hopper (``csrc/``), built by ``nvcc`` on
 first use on a CUDA tensor; on CPU tensors every kernel wrapper runs its
 plain PyTorch version.
 
-  core/       model-building contracts
-  nn/         building blocks (activations, normalization, resize, UNet block)
-  zoo/        UNet encoder / decoder / head, models, flax weight bridge, fused UNet
-  inference/  tiled huge-image inference with d4 TTA
-  losses/     segmentation and classification losses (Lovasz sorts on K4 / K5)
-  ops/        the CUDA kernels' wrappers and their plain versions
+  core/        model-building contracts
+  nn/          building blocks (activations, normalization, resize, UNet block)
+  zoo/         UNet encoder / decoder / head, models, flax weight bridge, fused UNet
+  inference/   tiled huge-image inference with d4 TTA, ensembling, 3D tiles
+  distributed/ process-group helpers and strip-sharded tiled inference (config 5)
+  losses/      segmentation and classification losses (Lovasz sorts on K4 / K5)
+  ops/         the CUDA kernels' wrappers and their plain versions
+  utils/       cost-balanced bucket assignment
 """
 
 __version__ = "0.1.0"
 
-from . import core, inference, losses, nn, ops, zoo
+from . import core, distributed, inference, losses, nn, ops, utils, zoo
 
-__all__ = ["core", "inference", "losses", "nn", "ops", "zoo", "__version__"]
+__all__ = ["core", "distributed", "inference", "losses", "nn", "ops", "utils", "zoo", "__version__"]

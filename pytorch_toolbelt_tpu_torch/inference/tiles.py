@@ -356,9 +356,9 @@ class TileMerger:
 
 
 def _stack_batches(coords_yx_np: np.ndarray, batch_size: int, device=None):
-    """Split a [N, 2] (row, col) coord list into balanced batches: stacked
-    main batches [num_batches, B_eff, 2] plus at most one remainder batch
-    [r, 2] with r < B_eff, as device tensors.
+    """Split a [N, D] coord list ((row, col), or (z, row, col) for volumes)
+    into balanced batches: stacked main batches [num_batches, B_eff, D] plus
+    at most one remainder batch [r, D] with r < B_eff, as device tensors.
 
     No padding tiles (a padded slot would run the model on garbage), and a
     balanced batch size B_eff = ceil(N / ceil(N / B)), so no straggler batch
@@ -366,41 +366,52 @@ def _stack_batches(coords_yx_np: np.ndarray, batch_size: int, device=None):
     coords = np.asarray(coords_yx_np, dtype=np.int64)
     n_tiles = len(coords)
     if n_tiles == 0:
-        main, rem = coords.reshape(0, max(batch_size, 1), 2), coords
+        main, rem = coords.reshape(0, max(batch_size, 1), coords.shape[-1]), coords
     else:
         total_batches = -(-n_tiles // batch_size)
         b_eff = -(-n_tiles // total_batches)
         num_full = n_tiles // b_eff
-        main = coords[: num_full * b_eff].reshape(num_full, b_eff, 2)
+        main = coords[: num_full * b_eff].reshape(num_full, b_eff, coords.shape[-1])
         rem = coords[num_full * b_eff :]
     return torch.as_tensor(main, device=device), torch.as_tensor(rem, device=device)
 
 
-@lru_cache(maxsize=4)
-def _get_tiled_plan(h, w, tile_size, tile_step, weight, batch_size, partition="none", device=None):
-    """Host grid math plus device-resident tile coordinates and blend
-    window for a tiling config, computed once and cached (call
-    :func:`clear_tiled_cache` to release them).
+def _group_coords(slicer: ImageSlicer, partition: str) -> List[np.ndarray]:
+    """[N_g, 2] int64 (row, col) target-frame coordinates of each tile
+    group, in scan order.
 
     ``partition='none'`` yields one tile group; ``'parity2x2'`` yields four
     groups keyed by grid parity ((row//step_h) % 2, (col//step_w) % 2) so
     that, at step = size/2, the up-to-4 tiles covering any pixel land in 4
     distinct groups (the basis for spreading TTA views across the overlap).
     """
-    slicer = ImageSlicer((h, w), tile_size, tile_step, weight=weight)
     coords = slicer.crops  # (x, y, w, h)
-    coords_yx_np = np.stack([coords[:, 1], coords[:, 0]], axis=1).astype(np.int64)
-
+    coords_yx = np.stack([coords[:, 1], coords[:, 0]], axis=1).astype(np.int64)
     if partition == "none":
-        group_coords_np = [coords_yx_np]
-    elif partition == "parity2x2":
+        return [coords_yx]
+    if partition == "parity2x2":
         step_h, step_w = slicer.tile_step
-        parity = (coords_yx_np[:, 0] // step_h) % 2 * 2 + (coords_yx_np[:, 1] // step_w) % 2
-        group_coords_np = [coords_yx_np[parity == g] for g in range(4)]
-    else:
-        raise ValueError(f"Unknown tile partition {partition!r}")
+        parity = (coords_yx[:, 0] // step_h) % 2 * 2 + (coords_yx[:, 1] // step_w) % 2
+        return [coords_yx[parity == g] for g in range(4)]
+    raise ValueError(f"Unknown tile partition {partition!r}")
 
-    groups = tuple(_stack_batches(g, batch_size, device) for g in group_coords_np)
+
+def _grid_shape(slicer: ImageSlicer) -> Tuple[int, int]:
+    """(ty, tx): the tile grid's rows and columns."""
+    (th, tw), (sh, sw) = slicer.tile_size, slicer.tile_step
+    tgt_h, tgt_w = slicer.target_shape
+    return (tgt_h - th) // sh + 1, (tgt_w - tw) // sw + 1
+
+
+@lru_cache(maxsize=4)
+def _get_tiled_plan(h, w, tile_size, tile_step, weight, batch_size, partition="none", device=None):
+    """Host grid math plus device-resident tile coordinates and blend
+    window for a tiling config, computed once and cached (call
+    :func:`clear_tiled_cache` to release them).  One (main, remainder)
+    batch plan per tile group of :func:`_group_coords`.
+    """
+    slicer = ImageSlicer((h, w), tile_size, tile_step, weight=weight)
+    groups = tuple(_stack_batches(g, batch_size, device) for g in _group_coords(slicer, partition))
     group_coords = tuple(g[0] for g in groups)
     group_rem = tuple(g[1] for g in groups)
     weight_dev = torch.as_tensor(slicer.weight.astype(np.float32), device=device).contiguous()
@@ -453,37 +464,57 @@ def _tiled_apply_grouped(model_fns, image, tile_size, tile_step, weight, batch_s
         tile_step if isinstance(tile_step, int) else tuple(tile_step),
         weight, batch_size, partition, image.device,
     )
-    if len(group_coords) != len(model_fns):
-        raise ValueError(
-            f"Partition {partition!r} produced {len(group_coords)} tile groups "
-            f"but {len(model_fns)} model functions were supplied"
-        )
-    th, tw = slicer.tile_size
     sh, sw = slicer.tile_step
-    tgt_h, tgt_w = slicer.target_shape
-    ty, tx = (tgt_h - th) // sh + 1, (tgt_w - tw) // sw + 1
-
+    ty, tx = _grid_shape(slicer)
     padded = torch.nn.functional.pad(
         image, (slicer.margin_left, slicer.margin_right, slicer.margin_top, slicer.margin_bottom)
     )
-    tile_view = padded.unfold(1, th, sh).unfold(2, tw, sw)  # [C, ty, tx, th, tw], no copy
-
-    stack = None
-    out_dtype = None
-    for model_fn, main, rem in zip(model_fns, group_coords, group_rem):
-        for batch_coords in list(main) + ([rem] if len(rem) else []):
-            iy, ix = batch_coords[:, 0] // sh, batch_coords[:, 1] // sw
-            tiles = tile_view[:, iy, ix].permute(1, 0, 2, 3).contiguous()
-            preds = model_fn(tiles)
-            if stack is None:
-                out_dtype = preds.dtype
-                k = int(out_channels) if out_channels is not None else int(preds.shape[1])
-                stack = torch.empty(ty * tx, k, th, tw, dtype=accumulator_dtype, device=image.device)
-            stack[iy * tx + ix] = preds.to(accumulator_dtype)
+    stack, out_dtype = _tile_rows_stack(model_fns, padded, tuple(zip(group_coords, group_rem)), slicer, 0, ty,
+                                        out_channels, accumulator_dtype)
     return grid_merge(
         stack, weight_dev, (ty, tx, sh, sw), out_hw=(h, w),
         offset=(slicer.margin_top, slicer.margin_left), out_dtype=out_dtype,
     )
+
+
+def _gather_tiles(tile_view: torch.Tensor, batch_coords: torch.Tensor, tile_step, r0: int = 0):
+    """The tiles of one batch of target-frame (row, col) coordinates from
+    ``tile_view`` ([C, rows, tx, th, tw], grid row 0 being tile row ``r0``):
+    (grid rows relative to r0, grid columns, tiles [B, C, th, tw])."""
+    iy, ix = batch_coords[:, 0] // tile_step[0] - r0, batch_coords[:, 1] // tile_step[1]
+    return iy, ix, tile_view[:, iy, ix].permute(1, 0, 2, 3).contiguous()
+
+
+def _tile_rows_stack(model_fns, padded, groups, slicer, r0, r1, out_channels, accumulator_dtype):
+    """Run each group's model over its batches and write every prediction
+    into the stack of the sub-grid of tile rows ``[r0, r1)``: stack row
+    ``(iy - r0) * tx + ix`` holds tile (iy, ix).
+
+    ``padded`` is the padded image's target-frame rows from ``r0 * step_h``
+    to the bottom of tile row ``r1 - 1``; ``groups`` holds, per model
+    function, the (main, remainder) batches of :func:`_stack_batches` of
+    its tiles in those rows, on ``padded``'s device.  The single-chip path
+    runs it over every row and the strips of ``tiled_apply_sharded`` over
+    theirs, so both merge the same tile predictions.  Returns the stack and
+    the model's output dtype.
+    """
+    th, tw = slicer.tile_size
+    sh, sw = slicer.tile_step
+    tx = _grid_shape(slicer)[1]
+    tile_view = padded.unfold(1, th, sh).unfold(2, tw, sw)  # [C, r1 - r0, tx, th, tw], no copy
+
+    stack = None
+    out_dtype = None
+    for model_fn, (main, rem) in zip(model_fns, groups, strict=True):
+        for batch_coords in list(main) + ([rem] if len(rem) else []):
+            iy, ix, tiles = _gather_tiles(tile_view, batch_coords, (sh, sw), r0)
+            preds = model_fn(tiles)
+            if stack is None:
+                out_dtype = preds.dtype
+                k = int(out_channels) if out_channels is not None else int(preds.shape[1])
+                stack = torch.empty((r1 - r0) * tx, k, th, tw, dtype=accumulator_dtype, device=padded.device)
+            stack[iy * tx + ix] = preds.to(accumulator_dtype)
+    return stack, out_dtype
 
 
 # The d4 group has 8 elements; at 2x overlap (step = size/2) every interior
@@ -521,21 +552,23 @@ def tiled_apply_d4_tta(
         overlap window, at 1/4 the model compute of mode='full'.  Border
         pixels average the views of the tiles that cover them.
     """
+    model_fns, partition = _d4_model_fns(model_fn, mode, tile_size, tile_step)
+    return _tiled_apply_grouped(model_fns, image, tile_size, tile_step, weight, batch_size, out_channels,
+                                accumulator_dtype, partition=partition)
+
+
+def _d4_model_fns(model_fn, mode: str, tile_size, tile_step):
+    """(model function of each tile group, partition) of d4 TTA mode
+    ``'full'`` or ``'distributed'``."""
+    if mode == "full":
+        return (lambda tiles: d4_image2mask(model_fn, tiles),), "none"
+    if mode != "distributed":
+        raise ValueError(f"Unknown d4 TTA mode {mode!r}; use 'full' or 'distributed'")
     ts = (tile_size, tile_size) if isinstance(tile_size, int) else tuple(tile_size)
     st = (tile_step, tile_step) if isinstance(tile_step, int) else tuple(tile_step)
-    if mode == "full":
-        return _tiled_apply_grouped(
-            (lambda tiles: d4_image2mask(model_fn, tiles),), image, tile_size, tile_step, weight,
-            batch_size, out_channels, accumulator_dtype, partition="none",
-        )
-    if mode != "distributed":
-        raise ValueError(f"Unknown d4 TTA mode {mode!r}")
     if ts[0] != 2 * st[0] or ts[1] != 2 * st[1]:
         raise ValueError(
             "mode='distributed' needs tile_step == tile_size/2 (4-fold overlap) "
             f"so the parity classes tile the d4 group; got size={ts} step={st}"
         )
-    return _tiled_apply_grouped(
-        tuple(_views_fn(model_fn, views) for views in _D4_PARITY_VIEW_PAIRS), image, tile_size, tile_step,
-        weight, batch_size, out_channels, accumulator_dtype, partition="parity2x2",
-    )
+    return tuple(_views_fn(model_fn, views) for views in _D4_PARITY_VIEW_PAIRS), "parity2x2"

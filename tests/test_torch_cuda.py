@@ -427,6 +427,69 @@ def test_fused_unet_on_cuda_matches_module(dev):
 
 
 # ---------------------------------------------------------------------------
+# Strip-sharded tiled inference and 3D tiles on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_strips_on_cuda_equal_single_chip_bit_for_bit(dev, n):
+    """The fused UNet on the card: each strip runs other batch sizes than
+    the single-chip call, and the strips still equal it bit for bit; one K1
+    launch per strip, on the cell route."""
+    from pytorch_toolbelt_tpu_torch.distributed import tiled_apply_sharded
+
+    torch.manual_seed(0)
+    fused = fuse_unet_inference(UNetSegmentationModel(num_classes=2, encoder_channels=8, num_layers=3).to(dev).eval())
+    image = torch.rand(3, 200, 170, device=dev)
+    want = tiled_apply_d4_tta(fused, image, 64, 32, batch_size=5, mode="distributed")
+    strips = []
+    for d in range(n):
+        before = dict(grid_merge.launches_by_route)
+        strips.append(tiled_apply_sharded(fused, image, 64, 32, batch_size=5, d4_tta="distributed", rank=d,
+                                          world_size=n))
+        _assert_k1_route("cell", before)
+    got = torch.cat(strips, dim=1)
+    assert got.device == image.device and got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+def test_replicated_canvas_on_cuda_launches_k3(dev):
+    from pytorch_toolbelt_tpu_torch.distributed import tiled_apply_sharded
+
+    image = torch.from_numpy(np.random.RandomState(14).random((3, 100, 90)).astype(np.float32))
+    kw = dict(tile_size=32, tile_step=16, batch_size=4, d4_tta="distributed")
+    strips = tiled_apply_sharded(_pattern_model(dev), image, **kw)  # a host image moves to the current device
+    model, batches = _pattern_model(dev), []
+
+    def counted(tiles):
+        batches.append(len(tiles))
+        return model(tiles)
+
+    before = accumulate_tiles.launches
+    got = tiled_apply_sharded(counted, image.to(dev), canvas="replicated", **kw)
+    # 30 tiles of two views each; one K3 launch per batch
+    assert sum(batches) == 2 * 30 and accumulate_tiles.launches == before + len(batches)
+    assert strips.device == got.device == dev
+    assert float((got - strips).abs().max()) <= 1e-5 * float(strips.abs().max())
+
+
+def test_volume_merger_allocates_on_the_current_cuda_device(dev):
+    from pytorch_toolbelt_tpu_torch.inference import VolumeMerger, VolumeSlicer, tiled_apply_3d
+
+    slicer = VolumeSlicer((12, 20, 16), 8, 4, weight="pyramid")
+    merger = VolumeMerger(slicer.target_shape, channels=2, weight=slicer.weight)
+    assert merger.volume.device == merger.norm_mask.device == torch.device("cuda", torch.cuda.current_device())
+    volume = torch.rand(2, 12, 20, 16, device=dev)
+    padded = torch.nn.functional.pad(volume, (slicer.margin_left, slicer.margin_right, slicer.margin_top,
+                                              slicer.margin_bottom, slicer.margin_front, slicer.margin_back))
+    tiles = torch.stack([padded[:, z : z + d, y : y + h, x : x + w] for z, y, x, d, h, w in slicer.crops])
+    merger.integrate_batch(tiles, slicer.crops)
+    torch.testing.assert_close(slicer.crop_to_original_size(merger.merge()), volume, rtol=0, atol=1e-5)
+    torch.testing.assert_close(tiled_apply_3d(lambda t: t * 2.0, volume, 8, 4, batch_size=3), volume * 2.0,
+                               rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # K4 / K5: the row sorts
 # ---------------------------------------------------------------------------
 
