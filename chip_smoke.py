@@ -12,8 +12,8 @@ config-4 loss suite, streaming tiled inference of SEResNeXt50-FPN through
 ``TileMerger(use_pallas=True)``, config 3's d4 + multiscale TTA, a
 ResNet34-UNet through tiled d4 inference, pad -> d2 TTA -> unpad on one
 image, config 5's strip-sharded tiled inference under an nccl process
-group, an ensemble and 3D tiles -- and holds each against an independent
-plain path.  Weights and
+group, an ensemble and 3D tiles, config 2 in int8 and the int8
+SEResNeXt50-FPN -- and holds each against an independent plain path.  Weights and
 data are random, made from a seed.
 
 Phases, each printed on its own line:
@@ -115,20 +115,38 @@ Phases, each printed on its own line:
      of ``tiled_apply_d4_tta`` at 2048^2 against the mean of the two fp32
      plain paths; ``tiled_apply_3d`` of a Conv3d net over a [1, 128, 512,
      512] volume at 64/32 against a plain tile-by-tile path, and of a
-     pointwise Conv3d against its direct output; ms per call.
+     pointwise Conv3d against its direct output; ms per call;
+ 16. int8 inference (slice E): ``quantize_unet_inference`` of UNet-32
+     calibrated on the first 4 tiles of phase 6's 5000^2 image, bit-equal on
+     those tiles to the same network on Q1's and Q2's plain versions, and its
+     ``int8_forward_rel_rms`` against the bf16 fused forward (bench.py's
+     metric); Q1 (qconv2d) at every conv call of that network on 16 tiles
+     and Q2 (q_upsample) at every upsample, with the calls' own data, bit
+     for bit against ``qconv2d_reference`` / ``q_upsample_reference``, each
+     timed beside its bound (bytes over 3.35 TB/s or int8 operations over
+     1979 TOP/s), its plain version, ``torch._int_mm`` on the im2col and
+     the bf16 K2 at the shape; config 2 in int8 (5000^2, distributed, batch
+     64, after a warm-up): wall, MP/s, peak memory, launches, the output
+     against the bf16 path's, then bf16 and int8 timed in turns and both
+     profiled by kind; the int8 SEResNeXt50-FPN(128) with 19 classes
+     (``quantize_encoder_decoder_inference``) at 1024^2: Q1 and Q2 at each
+     distinct call bit for bit and timed, ms per forward and per config-3
+     d4 + multiscale TTA call, relative RMS against the fp32 forward.
 
 Device times are medians over five windows of CUDA events; each phase
 prints the spread (min-max) of its kernel's windows beside the median.
 The kernels line gives, for every kernel, its time at the main path's shape
 beside its plain version's, one library call's where one computes the same
 function, and its bound: the larger of its compulsory bytes over 3.35 TB/s
-and its operations over the 989 TFLOP/s bf16 peak (H100 SXM data sheet).
+and its operations over the 989 TFLOP/s bf16 peak (1979 TOP/s for Q1's int8
+operations; H100 SXM data sheet).
 
 Any mismatch or error exits non-zero.  The line before the last is a JSON
 object describing the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import contextlib
 import ctypes
 import json
 import math
@@ -165,6 +183,7 @@ LOSS_STEPS = 16  # chained value + gradient + x += 1e-4 * grad steps, as bench.p
 # take for a kernel's work is the larger of its bytes over HBM_RATE and its operations over the peak
 HBM_RATE = 3.35e12  # bytes/s
 BF16_PEAK = 989e12  # tensor-core FLOP/s
+INT8_PEAK = 1979e12  # tensor-core int8 operations/s (dense)
 # Slice C + K3: the streaming tiled path and config 3
 CLASSES = 19
 STREAM_SIZE, STREAM_BATCH = 5000, 32  # 361 tiles of 512^2 at step 256 -> 12 batches
@@ -184,6 +203,20 @@ WINDOW_TOL = 1e-4  # the K = 19 pixelwise head's tiled output against its direct
 ENSEMBLE_SIZE = 2048
 VOLUME_SHAPE, VOXEL_TILE, VOXEL_STEP, VOXEL_BATCH = (1, 128, 512, 512), 64, 32, 32
 VOLUME_TOL = 1e-5  # against the plain tile-by-tile path, relative to max|ref|
+# Phase 16: int8 inference.  The int8 UNet-32 calibrated on the first 4 tiles of the 5000^2 image
+# (bench.py:185-187), checked on 16 tiles and then at every shape of config 2's int8 run; the int8
+# SEResNeXt50-FPN(128) on one 1024^2 image
+INT8_CHECK_BATCH, INT8_CAL_TILES = 16, 4
+INT8_PLAIN_CHUNK = 16  # samples per call of the float64 plain versions and of the im2col for torch._int_mm
+INT8_INT_MM_BYTES = 40 * 2**30  # the largest im2col + int32 product the torch._int_mm yardstick may allocate
+INT8_SIZE, INT8_CAL_IMAGES = 1024, 2
+# The int8 UNet-32 against the bf16 fused path (relative RMS).  seed_weights' He-normal weights with BN statistics
+# lose more to the shift-only requant over 15 convs than flax's default init (the JAX bench's 0.0246): this phase
+# measures ~0.105 on the calibration tiles, with the integer path bit-equal to the JAX package's given its ranges
+# (tests/test_torch_quantized.py).  A broken integer path lands near 1.
+INT8_PTQ_RMS = 0.15
+INT8_KINDS = (("Q1 (int8 conv)", r"qconv_kernel"), ("Q2 (int8 upsample)", r"q_upsample_kernel"), ("K1", r"grid_merge"),
+              ("cat", r"CatArray"), ("max pooling (torch.maximum)", r"maximum|max_"))
 # (kind, pattern of the kernel names) for phase 12's device time; the first match counts
 DEVICE_KINDS = (("K1", r"grid_merge"), ("cuDNN convs", r"xmma|cutlass|cudnn|fprop|dgrad|convolve"),
                 ("BatchNorm", r"batch_norm"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"))
@@ -1794,6 +1827,449 @@ def phase_ensemble_3d(dev, smi, model, fused):
             raise AssertionError(f"tiled_apply_3d with the {name} disagrees with its reference")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: int8 inference (Q1, Q2) -- the integer UNet-32 through config 2's pipeline, the integer
+# SEResNeXt50-FPN(128) at 1024^2
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _checked_calls(name: str, check):
+    """While the block runs, hold the int8 forwards' calls of Q1 or Q2
+    (``qconv2d`` or ``q_upsample`` as ``zoo/quantized_unet.py`` calls them)
+    against their plain versions as the main path makes them: at the first
+    call of each distinct shape, ``check(args, kwargs)`` runs on that call's
+    own inputs, so no input outlives its call.  Yields {shape: [check's
+    record, calls]}."""
+    from pytorch_toolbelt_tpu_torch.zoo import quantized_unet as qu
+
+    real, seen = getattr(qu, name), {}
+
+    def wrapped(*args, **kwargs):
+        key = tuple((tuple(a.shape), a.dtype) if isinstance(a, (torch.Tensor, np.ndarray)) else
+                    (tuple(a.weight.shape), a.groups) if hasattr(a, "groups") else a for a in args)
+        key += tuple(sorted((k, v) for k, v in kwargs.items() if k == "relu"))
+        if key not in seen:
+            seen[key] = [check(args, kwargs), 0]
+        seen[key][1] += 1
+        return real(*args, **kwargs)
+
+    setattr(qu, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(qu, name, real)
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """The int8 forwards with Q1 and Q2 replaced by their plain versions."""
+    from pytorch_toolbelt_tpu_torch.ops import q_upsample_reference, qconv2d_reference
+    from pytorch_toolbelt_tpu_torch.zoo import quantized_unet as qu
+
+    real = qu.qconv2d, qu.q_upsample
+    qu.qconv2d = lambda x, weight, stride, padding, epilogue, **kw: qconv2d_reference(
+        x, weight.weight, stride, padding, weight.groups, epilogue, **kw)
+    qu.q_upsample = lambda x, mh, mw, taps=None: q_upsample_reference(x, mh, mw)
+    try:
+        yield
+    finally:
+        qu.qconv2d, qu.q_upsample = real
+
+
+def _reset_int8_counts():
+    from pytorch_toolbelt_tpu_torch.ops import q_upsample, qconv2d
+
+    for fn in (qconv2d, q_upsample):
+        fn.launches = 0
+        for route in fn.launches_by_route:
+            fn.launches_by_route[route] = 0
+
+
+def _int8_counts() -> dict:
+    from pytorch_toolbelt_tpu_torch.ops import grid_merge, q_upsample, qconv2d
+
+    return {"qconv2d": qconv2d.launches, "qconv2d_by_route": dict(qconv2d.launches_by_route),
+            "q_upsample": q_upsample.launches, "q_upsample_by_route": dict(q_upsample.launches_by_route),
+            "grid_merge": grid_merge.launches, "grid_merge_by_route": dict(grid_merge.launches_by_route)}
+
+
+def _by_chunks(fn, x, *args, **kwargs):
+    """A plain version over x's batch in chunks of INT8_PLAIN_CHUNK samples:
+    the same values (every sample is its own), in a bounded float64 memory."""
+    return torch.cat([fn(x[i:i + INT8_PLAIN_CHUNK], *args, **kwargs) for i in range(0, x.shape[0], INT8_PLAIN_CHUNK)])
+
+
+def _int_mm_ms(x, weight, stride, padding):
+    """One ``torch._int_mm`` (cuBLASLt int8 -> int32) on the im2col of x with
+    the same weights: the yardstick where the shape allows it (groups 1).
+    The im2col is made (in batch chunks) before the timing and is not in it;
+    K and N are padded to multiples of 8 as ``_int_mm`` needs."""
+    if weight.groups != 1:
+        return None
+    b, c_out = x.shape[0], weight.weight.shape[0]
+    kh, kw = weight.weight.shape[2:]
+    top, bottom, left, right = padding
+    ho = (x.shape[2] + top + bottom - kh) // stride + 1
+    wo = (x.shape[3] + left + right - kw) // stride + 1
+    k, n = x.shape[1] * kh * kw, -(-c_out // 8) * 8
+    if b * ho * wo * (-(-k // 8) * 8 + 4 * n) > INT8_INT_MM_BYTES:
+        log(f"[16]   torch._int_mm not timed: its operands would pass {INT8_INT_MM_BYTES / 2**30:.0f} GiB")
+        return None
+    a = torch.zeros(b * ho * wo, -(-k // 8) * 8, dtype=torch.int8, device=x.device)
+    for i in range(0, b, INT8_PLAIN_CHUNK):
+        cols = F.unfold(F.pad(x[i:i + INT8_PLAIN_CHUNK].half(), (left, right, top, bottom)), (kh, kw),
+                        stride=stride)  # exact for int8 values
+        a[i * ho * wo:(i + cols.shape[0]) * ho * wo, :k] = cols.transpose(1, 2).reshape(-1, k).to(torch.int8)
+        del cols
+    w = torch.zeros(n, a.shape[1], dtype=torch.int8, device=x.device)
+    w[:c_out, :k] = weight.weight.reshape(c_out, -1)
+    try:
+        return cuda_ms(lambda: torch._int_mm(a, w.t()), reps=3)
+    except RuntimeError as exc:
+        log(f"[16]   torch._int_mm refused [{a.shape[0]}, {a.shape[1]}] x [{a.shape[1]}, {n}]: {exc}")
+        return None
+
+
+def _check_q1(what: str, timed: bool, with_k2: bool = False):
+    """A check for ``_checked_calls("qconv2d", ...)``: Q1 against
+    ``qconv2d_reference`` bit for bit on the call's own inputs and, if
+    ``timed``, Q1's time beside its bound, its plain version,
+    ``torch._int_mm`` and (with_k2: the UNet's 3x3 stride-1 shapes) the bf16
+    K2 at the same shape."""
+    from pytorch_toolbelt_tpu_torch.ops import conv3x3, pack_conv3x3_weights, qconv2d, qconv2d_reference
+
+    def check(args, kwargs):
+        x, weight, stride, padding, epilogue = args
+        plain = lambda: _by_chunks(qconv2d_reference, x, weight.weight, stride, padding, weight.groups,  # noqa: E731
+                                   epilogue, **kwargs)
+        before = dict(qconv2d.launches_by_route)
+        got = qconv2d(*args, **kwargs)
+        route = next(r for r, n in qconv2d.launches_by_route.items() if n != before[r])
+        want = plain()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        b, c_in, h, w = x.shape
+        c_out, ci_pg, kh, kw = weight.weight.shape
+        shape = (f"{c_in}->{c_out} {kh}x{kw}/{stride} g{weight.groups} @{h}x{w} batch {b} {epilogue}"
+                 f"{' relu' if kwargs.get('relu') else ''}")
+        if got.dtype != want.dtype or got.shape != want.shape or err != 0:
+            raise AssertionError(f"{what}: qconv2d {shape} disagrees with qconv2d_reference (max |err| {err})")
+        del want
+        record = {"max_abs_err": err, "route": route, "shape": shape}
+        if not timed:
+            return record
+        ho, wo = got.shape[2:]
+        nbytes = x.numel() + weight.weight.numel() + got.numel() * got.element_size()
+        ops = 2.0 * b * ho * wo * c_out * ci_pg * kh * kw
+        del got
+        record["bound"], record["bound_by"] = bound_ms(nbytes, ops, INT8_PEAK)
+        record["ms"] = cuda_ms(lambda: qconv2d(*args, **kwargs), reps=3)
+        record["plain_ms"] = cuda_ms(plain, reps=1, windows=1, warmup=0)
+        record["library_ms"] = lib = _int_mm_ms(x, weight, stride, padding)
+        record["lib"] = ("groups > 1: no single library call" if weight.groups != 1 else "not timed" if lib is None
+                         else f"{lib:.3f} ms")
+        record["ops"] = ops
+        if with_k2 and (kh, kw, stride, weight.groups) == (3, 3, 1, 1):
+            xb = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            wb = pack_conv3x3_weights(weight.weight.float())
+            ones, zeros = torch.ones(c_out, device=x.device), torch.zeros(c_out, device=x.device)
+            record["k2_ms"] = cuda_ms(lambda: conv3x3(xb, wb, ones, zeros, relu=bool(kwargs.get("relu"))), reps=3)
+            del xb
+        return record
+
+    return check
+
+
+def _check_q2(timed: bool):
+    """A check for ``_checked_calls("q_upsample", ...)``: Q2 against
+    ``q_upsample_reference`` bit for bit on the call's own inputs and, if
+    ``timed``, its time beside its bound, its plain version and bf16
+    ``F.interpolate`` of the same tensor."""
+    from pytorch_toolbelt_tpu_torch.ops import q_upsample, q_upsample_reference
+
+    def check(args, kwargs):
+        x, mh, mw = args
+        before = dict(q_upsample.launches_by_route)
+        got = q_upsample(*args, **kwargs)
+        route = next(r for r, n in q_upsample.launches_by_route.items() if n != before[r])
+        want = _by_chunks(q_upsample_reference, x, mh, mw)
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        shape = f"{list(x.shape)} -> {list(got.shape[2:])}"
+        if got.shape != want.shape or err != 0:
+            raise AssertionError(f"q_upsample {shape} disagrees with q_upsample_reference (max |err| {err})")
+        record = {"max_abs_err": err, "route": route, "shape": shape}
+        if not timed:
+            return record
+        record["bound"], _ = bound_ms(x.numel() + got.numel())
+        record["bytes"] = x.numel() + got.numel()
+        record["ms"] = cuda_ms(lambda: q_upsample(*args, **kwargs), reps=5)
+        record["plain_ms"] = cuda_ms(lambda: _by_chunks(q_upsample_reference, x, mh, mw), reps=1, windows=1,
+                                     warmup=0)
+        xb = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        record["bf16_ms"] = cuda_ms(lambda: F.interpolate(xb, size=got.shape[2:], mode="bilinear",
+                                                          align_corners=True), reps=5)
+        return record
+
+    return check
+
+
+def _q1_totals(seen: dict, what: str) -> dict:
+    """Q1's checked shapes of one run: a log line each, and the run's sums
+    (each shape's time times its calls)."""
+    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "operations": 0.0, "library_ms": 0.0, "k2_ms": 0.0,
+             "max_abs_err": 0, "shapes": len(seen), "calls": sum(n for _, n in seen.values())}
+    for r, n in seen.values():
+        total["max_abs_err"] = max(total["max_abs_err"], r["max_abs_err"])
+        if "ms" not in r:
+            log(f"[16] qconv2d {what} {r['shape']} (x{n}) route {r['route']}: bit-equal to qconv2d_reference")
+            continue
+        ms = r["ms"]
+        for key in ("ms", "plain_ms", "k2_ms"):
+            total[key] += n * r.get(key, 0.0)
+        total[r["bound_by"]] += n * r["bound"]
+        total["library_ms"] = None if r["library_ms"] is None or total["library_ms"] is None else \
+            total["library_ms"] + n * r["library_ms"]
+        k2 = f"; bf16 K2 at the shape {r['k2_ms']:.3f} ms" if "k2_ms" in r else ""
+        log(f"[16] qconv2d {what} {r['shape']} (x{n}) route {r['route']}: bit-equal to qconv2d_reference; kernel "
+            f"{ms} ({r['ops'] / ms / 1e9:.1f} TOP/s), bound {r['bound']:.3f} ms ({r['bound_by']}) = "
+            f"{r['bound'] / ms:.1%} of the kernel; plain version (in batch chunks of {INT8_PLAIN_CHUNK}) "
+            f"{r['plain_ms']:.3f} ms; torch._int_mm on the im2col (im2col not timed) {r['lib']}{k2}")
+    return total
+
+
+def _q2_totals(seen: dict) -> dict:
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bf16_ms": 0.0, "max_abs_err": 0,
+             "calls": sum(n for _, n in seen.values())}
+    for r, n in seen.values():
+        total["max_abs_err"] = max(total["max_abs_err"], r["max_abs_err"])
+        if "ms" not in r:
+            log(f"[16] q_upsample {r['shape']} (x{n}) route {r['route']}: bit-equal to q_upsample_reference")
+            continue
+        for key, value in (("ms", r["ms"]), ("plain_ms", r["plain_ms"]), ("bound_ms", r["bound"]),
+                           ("bf16_ms", r["bf16_ms"])):
+            total[key] += n * value
+        log(f"[16] q_upsample {r['shape']} (x{n}) route {r['route']}: bit-equal to q_upsample_reference; kernel "
+            f"{r['ms']} = {r['bytes'] / r['ms'] / 1e6:.0f} GB/s, bound {r['bound']:.3f} ms (bytes) = "
+            f"{r['bound'] / r['ms']:.1%} of the kernel; plain version {r['plain_ms']:.3f} ms; bf16 F.interpolate "
+            f"of the same tensor (another function, for scale) {r['bf16_ms']:.3f} ms")
+    return total
+
+
+def int8_config3_model(dev):
+    """The ResNet-family twin of config 3's model that the int8 quantizer
+    takes: ``seresnext50_encoder()`` (3/4/6/3 bottlenecks, 32 groups of width
+    4, SE), FPN(128), ResizeHead(19); seeded weights with config3_model's cut
+    of the residual branches' last BatchNorm scales."""
+    from pytorch_toolbelt_tpu_torch.zoo import EncoderDecoderModel, FPNDecoder, ResizeHead, seresnext50_encoder
+
+    encoder = seresnext50_encoder()
+    decoder = FPNDecoder(encoder.get_output_spec(), out_channels=128)
+    model = seed_weights(EncoderDecoderModel(encoder, decoder, ResizeHead(decoder.get_output_spec(),
+                                                                            num_classes=CLASSES)), SEED + 10)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("bn3.weight", "downsample.1.weight")):
+                p.mul_(RESIDUAL_BN_SCALE)
+    return model.eval().to(dev)
+
+
+def _rel_rms(got, ref) -> float:
+    got, ref = got.double(), ref.double()
+    return float((got - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+
+
+def phase_int8(dev, smi, model, fused, t_start):
+    """Slice E: the int8 UNet-32 forward against its plain version and the
+    bf16 fused path; config 2 in int8 at 5000^2, whose first run holds Q1
+    and Q2 bit for bit against their plain versions at each of its shapes,
+    on its own data, and times them; the int8 SEResNeXt50-FPN(128) at 1024^2
+    (Q1 and Q2 held and timed the same way) and under config 3's TTA."""
+    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, MultiscaleTTA, d4_image2mask, tiled_apply_d4_tta
+    from pytorch_toolbelt_tpu_torch.zoo import quantize_encoder_decoder_inference, quantize_unet_inference
+    from pytorch_toolbelt_tpu_torch.zoo.quantized_unet import _build_int8_unet, _calibrate_unet
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    image = torch.rand(3, 5000, 5000, device=dev, generator=gen)  # phase 6's image
+    slicer = ImageSlicer((5000, 5000), TILE, STEP)
+    tiles = slicer.split(image.permute(1, 2, 0).cpu().numpy())[:INT8_CHECK_BATCH]
+    tiles = torch.from_numpy(np.stack(tiles)).permute(0, 3, 1, 2).contiguous().to(dev)
+    cal_tiles = tiles[:INT8_CAL_TILES]
+
+    # [16.3] the int8 UNet-32 on the calibration tiles: kernels against plain versions, against bf16
+    t0 = time.perf_counter()
+    q_forward = quantize_unet_inference(model, cal_tiles)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    cal = _calibrate_unet(model, cal_tiles, 1.0)
+    forward = _build_int8_unet(cal, 3, None, dev)
+    got = forward(cal_tiles)
+    with _plain_kernels():
+        want = forward(cal_tiles)
+    if not torch.equal(got, want):
+        raise AssertionError(f"the int8 UNet-32 on Q1 and Q2 disagrees with its plain version: max |err| "
+                             f"{float((got - want).abs().max())}")
+    if not torch.equal(q_forward(cal_tiles), got):
+        raise AssertionError("two calibrations of the int8 UNet-32 on the same tiles gave other networks")
+    with torch.no_grad():
+        ref_bf16 = fused(cal_tiles).float()
+        ref_fp32 = model(cal_tiles)
+    rel_rms = _rel_rms(got, ref_bf16)
+    log(f"[16] int8 UNet-32 (quantize_unet_inference, calibrated in {cal_s:.2f} s on the first {INT8_CAL_TILES} "
+        f"tiles of the 5000^2 image): on those tiles bit-equal to the same network on the plain versions; "
+        f"int8_forward_rel_rms against the bf16 fused forward {rel_rms:.4f} (<= {INT8_PTQ_RMS}), against the "
+        f"fp32 module {_rel_rms(got, ref_fp32):.4f}")
+    if not rel_rms <= INT8_PTQ_RMS:
+        raise AssertionError("the int8 UNet-32 is further from the bf16 path than int8 PTQ error")
+    del got, want, ref_bf16, ref_fp32, forward
+
+    # the int8 UNet-32 on 16 tiles: Q1 and Q2 at each call against their plain versions
+    with _checked_calls("qconv2d", _check_q1("UNet-32", False)) as convs, \
+            _checked_calls("q_upsample", _check_q2(False)) as ups:
+        q_forward(tiles)
+    torch.cuda.synchronize()
+    _q1_totals(convs, f"UNet-32 on {INT8_CHECK_BATCH} tiles")
+    _q2_totals(ups)
+    del convs, ups, tiles
+
+    # [16.1, 16.2] config 2 in int8 (5000^2, distributed, batch 64): its first run is the warm-up, in which Q1 and
+    # Q2 are held against their plain versions at the first call of each shape, on that call's data, and timed
+    run = lambda f: tiled_apply_d4_tta(f, image, TILE, STEP, weight="pyramid", batch_size=DIST_BATCH,  # noqa: E731
+                                       mode="distributed")
+    with _checked_calls("qconv2d", _check_q1("UNet-32", True, with_k2=True)) as convs, \
+            _checked_calls("q_upsample", _check_q2(True)) as ups:
+        run(q_forward)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    q1 = _q1_totals(convs, "UNet-32")
+    q2 = _q2_totals(ups)
+    del convs, ups
+    log(f"[16] qconv2d UNet-32, the {q1['calls']} convs of the 5000^2 int8 run ({q1['shapes']} distinct shapes), "
+        f"each shape's time times its calls: kernel {q1['ms']:.2f} ms, bound {q1['bytes'] + q1['operations']:.2f} ms "
+        f"(bytes {q1['bytes']:.2f}, operations {q1['operations']:.2f}), plain version {q1['plain_ms']:.2f} ms, "
+        f"torch._int_mm {q1['library_ms']} ms, bf16 K2 at the 3x3 stride-1 shapes {q1['k2_ms']:.2f} ms ({smi})")
+    log(f"[16] q_upsample UNet-32, the {q2['calls']} upsamples of the 5000^2 int8 run: kernel {q2['ms']:.3f} ms, "
+        f"bound {q2['bound_ms']:.3f} ms, plain version {q2['plain_ms']:.2f} ms, bf16 F.interpolate "
+        f"{q2['bf16_ms']:.3f} ms ({smi})")
+
+    # [16.4] the counted run, held against the bf16 fused path; then both timed in turns and profiled
+    _reset_int8_counts()
+    _reset_merge_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run(q_forward)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _int8_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check_merge_routes("[16] 5000^2 int8", 1)
+    if launches["qconv2d"] != q1["calls"] or launches["q_upsample"] != q2["calls"]:
+        raise AssertionError(f"the counted 5000^2 int8 run launched {launches}, the checked run made "
+                             f"{q1['calls']} qconv2d and {q2['calls']} q_upsample calls")
+    with torch.no_grad():
+        out_bf16 = run(fused).float()
+    rms = _rel_rms(out, out_bf16)
+    ok = out.shape == (1, 5000, 5000) and bool(torch.isfinite(out).all()) and rms <= INT8_PTQ_RMS
+    log(f"[16] config 2 int8: tiled_apply_d4_tta 5000^2 distributed batch={DIST_BATCH}: {wall:.3f} s, "
+        f"{25.0 / wall:.2f} MP/s, peak {peak:.2f} GiB allocated; launches {launches}; rel RMS against the "
+        f"bf16 fused path's output {rms:.4f} (<= {INT8_PTQ_RMS}) {'ok' if ok else 'FAIL'} ({smi})")
+    if not ok:
+        raise AssertionError("config 2 in int8 gave a wrong shape, non-finite values or strays from bf16")
+    del out, out_bf16
+    if time.perf_counter() - t_start < TIME_BUDGET_S / 2:
+        walls = {"bf16": [], "int8": []}
+        for name, f in (("bf16", fused), ("int8", q_forward), ("int8", q_forward), ("bf16", fused)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(f)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+        log("[16] 5000^2 distributed batch 64 in turns (bf16, int8, int8, bf16): " + "; ".join(
+            f"{k} {', '.join(f'{w:.3f}' for w in v)} s = {25.0 / statistics.median(v):.2f} MP/s"
+            for k, v in walls.items()) + f" ({smi})")
+        _log_profile_by_kind("[16] profiled 5000^2 int8 distributed run", lambda: run(q_forward), INT8_KINDS, smi,
+                             top=10)
+        _log_profile_by_kind("[16] profiled 5000^2 bf16 distributed run (same call)", lambda: run(fused),
+                             CONFIG5_KINDS, smi, top=0)
+    else:
+        log("[16] config 2 int8 at 5000^2: the timing in turns and the profiles skipped, over half the time "
+            "budget spent")
+    del image
+    torch.cuda.empty_cache()
+
+    # [16.5] the int8 SEResNeXt50-FPN(128), 19 classes: calibrate, Q1 at its shapes, time, fidelity
+    model3 = int8_config3_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    cal_images = torch.rand(INT8_CAL_IMAGES, 3, INT8_SIZE, INT8_SIZE, device=dev, generator=gen)
+    x = torch.rand(1, 3, INT8_SIZE, INT8_SIZE, device=dev, generator=gen)
+    t0 = time.perf_counter()
+    q3 = quantize_encoder_decoder_inference(model3, cal_images)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    del cal_images
+    with _checked_calls("qconv2d", _check_q1("SEResNeXt50-FPN", True)) as convs, \
+            _checked_calls("q_upsample", _check_q2(True)) as ups:
+        q3(x)
+    torch.cuda.synchronize()
+    q1_3 = _q1_totals(convs, "SEResNeXt50-FPN")
+    q2_3 = _q2_totals(ups)
+    del convs, ups
+    _reset_int8_counts()
+    got = q3(x)
+    torch.cuda.synchronize()
+    counts3 = _int8_counts()
+    with torch.no_grad():
+        ref = model3(x)
+    rms = _rel_rms(got, ref)
+    ok = got.shape == (1, CLASSES, INT8_SIZE, INT8_SIZE) and bool(torch.isfinite(got).all())
+    ms = cuda_ms(lambda: q3(x), reps=3)
+    f_ms = cuda_ms(lambda: model3(x), reps=3)
+    tta = MultiscaleTTA(lambda xi: d4_image2mask(q3, xi), size_offsets=MS_OFFSETS)
+    tta(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        out = tta(x)
+    torch.cuda.synchronize()
+    tta_ms = (time.perf_counter() - t0) / 3 * 1e3
+    ok = ok and out.shape == (1, CLASSES, INT8_SIZE, INT8_SIZE) and bool(torch.isfinite(out).all())
+    log(f"[16] int8 SEResNeXt50-FPN(128), {CLASSES} classes (quantize_encoder_decoder_inference, requant mul, bias "
+        f"correction, calibrated in {cal_s:.1f} s on {INT8_CAL_IMAGES} images of {INT8_SIZE}^2): its {q1_3['calls']} "
+        f"convs ({q1_3['shapes']} distinct shapes) bit-equal to qconv2d_reference, {q1_3['ms']:.2f} ms of Q1 per "
+        f"forward against a bound of {q1_3['bytes'] + q1_3['operations']:.2f} ms; launches per forward: Q1 "
+        f"{counts3['qconv2d_by_route']}, Q2 {counts3['q_upsample_by_route']} ({smi})")
+    log(f"[16] int8 SEResNeXt50-FPN(128): {ms} per [1, 3, {INT8_SIZE}, {INT8_SIZE}] forward (the fp32 module "
+        f"{f_ms}); config 3's d4 + multiscale {MS_OFFSETS} TTA {tta_ms:.1f} ms per call; rel RMS against the fp32 "
+        f"forward {rms:.4f}; {'ok' if ok else 'FAIL'} ({smi})")
+    if not ok:
+        raise AssertionError("the int8 SEResNeXt50-FPN gave a wrong shape or non-finite values")
+    for key in ("qconv2d", "q_upsample"):
+        launches[key] = launches.get(key, 0) + counts3[key]
+        by_route = launches.setdefault(f"{key}_by_route", dict.fromkeys(counts3[f"{key}_by_route"], 0))
+        for route, n in counts3[f"{key}_by_route"].items():
+            by_route[route] += n
+    if min(launches["qconv2d"], launches["q_upsample"]) == 0:
+        raise AssertionError(f"a kernel of the int8 paths was never launched: {launches}")
+    del model3, q3
+    torch.cuda.empty_cache()
+    max_err = max(q1["max_abs_err"], q1_3["max_abs_err"])
+    kernels = [
+        {"name": "qconv2d", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/qconv.cu",
+         "replaces": "pytorch_toolbelt_tpu/zoo/quantized_unet.py:140", "launches": launches["qconv2d"],
+         "max_abs_err": max_err, "ms": q1["ms"], "plain_ms": q1["plain_ms"],
+         "bound_ms": q1["bytes"] + q1["operations"],
+         "bound_by": "bytes" if q1["bytes"] >= q1["operations"] else "operations", "library_ms": q1["library_ms"],
+         "launches_by_route": launches["qconv2d_by_route"], "k2_bf16_ms": q1["k2_ms"],
+         "encdec_ms": q1_3["ms"], "encdec_bound_ms": q1_3["bytes"] + q1_3["operations"],
+         "encdec_library_ms": q1_3["library_ms"]},
+        {"name": "q_upsample", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/q_upsample.cu",
+         "replaces": "pytorch_toolbelt_tpu/zoo/quantized_unet.py:175", "launches": launches["q_upsample"],
+         "max_abs_err": max(q2["max_abs_err"], q2_3["max_abs_err"]), "ms": q2["ms"], "plain_ms": q2["plain_ms"],
+         "bound_ms": q2["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "launches_by_route": launches["q_upsample_by_route"]},
+    ]
+    return kernels, launches.get("grid_merge", 0), launches.get("grid_merge_by_route", {})
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1841,6 +2317,10 @@ def main() -> int:
         launches["grid_merge_by_route"][route] += n
     scatter_launches += config5["scatter_merge"]
     phase_ensemble_3d(dev, smi, model, fused)
+    int8_kernels, int8_merges, int8_merges_by_route = phase_int8(dev, smi, model, fused, t_start)
+    launches["grid_merge"] += int8_merges
+    for route, n in int8_merges_by_route.items():
+        launches["grid_merge_by_route"][route] += n
 
     kernels = [
         {"name": "conv3x3", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/conv3x3_wgmma.cuh",
@@ -1859,6 +2339,7 @@ def main() -> int:
                         "max_abs_err": sort_errors[name], "ms": sort_times[name, "fwd"],
                         "plain_ms": sort_times["reference", "fwd"], "bound_ms": sort_bound[0],
                         "bound_by": sort_bound[1], "library_ms": sort_times["library", "fwd"]})
+    kernels += int8_kernels
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

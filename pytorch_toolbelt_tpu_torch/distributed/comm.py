@@ -98,6 +98,8 @@ class DistributedGuard:
     ``"tcp://host:port"`` or ``"file:///path"``) and no group exists yet,
     ``__enter__`` calls ``init_process_group`` and ``__exit__`` calls
     ``destroy_process_group``.  Without an ``init_method`` it is a no-op.
+    ``rank`` may be left out: ``env://`` reads it from ``RANK``, and a world
+    of one process takes rank 0.
 
     The backend is ``nccl`` unless ``backend`` names another; ``nccl``
     without a GPU raises (pass ``backend="gloo"`` to run on the CPU).  Under
@@ -119,7 +121,12 @@ class DistributedGuard:
         if self.init_method is not None and not (dist.is_available() and dist.is_initialized()):
             if self.backend == "nccl" and not torch.cuda.is_available():
                 raise RuntimeError("the nccl backend needs a CUDA GPU; pass backend='gloo' to run on the CPU")
-            kwargs = {} if self.world_size is None else {"world_size": self.world_size, "rank": self.rank}
+            kwargs = {} if self.world_size is None else {"world_size": self.world_size}
+            # without a rank torch takes its own default, which env:// fills from RANK; a world
+            # of one has only rank 0
+            rank = 0 if self.rank is None and self.world_size == 1 else self.rank
+            if rank is not None:
+                kwargs["rank"] = rank
             dist.init_process_group(self.backend, init_method=self.init_method,
                                     timeout=datetime.timedelta(seconds=self.timeout_s), **kwargs)
             self._initialized_here = True

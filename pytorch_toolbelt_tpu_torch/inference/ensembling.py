@@ -120,7 +120,10 @@ class Ensembler:
             keys = range(len(stacked))
         else:
             return _deaugment_averaging(stacked, self.reduction)
-        reduced = [_deaugment_averaging(stacked[key], self.reduction) for key in keys]
+        if isinstance(stacked, torch.Tensor):  # members on dim 0: take each member's output[key]
+            reduced = [_deaugment_averaging(stacked[:, key], self.reduction) for key in keys]
+        else:
+            reduced = [_deaugment_averaging(stacked[key], self.reduction) for key in keys]
         return dict(zip(keys, reduced)) if output_is_dict else reduced
 
 

@@ -28,6 +28,29 @@ __all__ = ["resize_2d", "resize_bilinear", "resize_nearest"]
 _MAX_OUTPUT_NUMEL = 2**31 - 1
 
 
+def _linear_weights(in_size: int, out_size: int, align_corners: bool, dtype) -> np.ndarray:
+    """[out_size, in_size] interpolation matrix of one axis of a bilinear
+    resize (two nonzeros per row), in numpy; a copy of the JAX package's
+    ``pytorch_toolbelt_tpu/nn/functional.py:24``."""
+    if out_size == in_size:
+        return np.eye(in_size, dtype=dtype)
+    if align_corners and out_size > 1:
+        src = np.arange(out_size, dtype=np.float64) * ((in_size - 1) / (out_size - 1))
+    elif align_corners:
+        src = np.zeros((1,), dtype=np.float64)
+    else:
+        scale = in_size / out_size
+        src = np.maximum((np.arange(out_size, dtype=np.float64) + 0.5) * scale - 0.5, 0.0)
+    i0 = np.clip(np.floor(src).astype(np.int32), 0, in_size - 1)
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    frac = (src - i0).astype(np.float64)
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    rows = np.arange(out_size)
+    np.add.at(w, (rows, i0), 1.0 - frac)
+    np.add.at(w, (rows, i1), frac)
+    return w.astype(dtype)
+
+
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int], align_corners: bool = False) -> torch.Tensor:
     """Bilinear resize of an NCHW tensor to (rows, cols)."""
     size = (int(size[0]), int(size[1]))

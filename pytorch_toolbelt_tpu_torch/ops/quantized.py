@@ -1,0 +1,296 @@
+"""int8 convolution (kernel Q1) and requantized int8 bilinear upsample
+(kernel Q2) for the integer inference paths of ``zoo/quantized_unet.py`` and
+``zoo/quantized_encdec.py``.
+
+The JAX package runs both as XLA ops: ``lax.conv_general_dilated(...,
+preferred_element_type=int32)`` with an integer epilogue
+(``pytorch_toolbelt_tpu/zoo/quantized_unet.py:140``) and two int8 einsums
+against quantized interpolation matrices (``:175``).  torch has neither on
+CUDA, so the port brings hand-written kernels: ``csrc/qconv.cu`` (an
+``mma.sync`` s8 implicit GEMM with the epilogue fused) and
+``csrc/q_upsample.cu`` (both interpolation passes of one output pixel from
+its four input pixels).
+
+Activations are NCHW tensors in the ``torch.channels_last`` memory format
+(their storage is NHWC), int8.  All integer arithmetic is int32 with two's
+complement wraparound, as XLA's; ``>>`` is arithmetic and a shift of 32 or
+more leaves the sign, as in XLA and torch.
+
+:func:`qconv2d` and :func:`q_upsample` launch their kernel for CUDA tensors
+and run their plain version (:func:`qconv2d_reference`,
+:func:`q_upsample_reference`) for CPU tensors; on any other device they raise.
+"""
+
+import ctypes
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+__all__ = [
+    "QConvWeight",
+    "pack_qconv2d_weights",
+    "q_upsample",
+    "q_upsample_reference",
+    "qconv2d",
+    "qconv2d_reference",
+    "upsample_taps",
+]
+
+_QMAX = 127
+_MUL_SHIFT = 23
+_EPILOGUES = ("acc", "shift", "mul")
+_K_STEP = 32  # K bytes per mma.m16n8k32 step: the packed K is padded to it per group
+_CONV_ROUTES = {16: "mma_v16", 4: "mma_v4", 1: "mma_v1"}  # bytes per gather of x
+_UPSAMPLE_ROUTES = {16: "v16", 4: "v4", 1: "v1"}  # channels per thread
+_CL = torch.channels_last
+
+
+class QConvWeight(NamedTuple):
+    """int8 conv weights as :func:`qconv2d` takes them."""
+
+    weight: torch.Tensor  # [C_out, C_in / groups, kh, kw] int8 (OIHW), for the plain version
+    packed: torch.Tensor  # [groups, N_pad, K_pad] int8, for the kernel
+    groups: int
+    tile_n: int  # output channels per block of the kernel
+
+
+def _tile_n(co_pg: int) -> int:
+    return next((n for n in (8, 16, 32) if co_pg <= n), 64)
+
+
+def pack_qconv2d_weights(weight: torch.Tensor, groups: int = 1) -> QConvWeight:
+    """OIHW int8 [C_out, C_in / groups, kh, kw] -> :class:`QConvWeight`.
+
+    The packed tensor is [groups, N_pad, K_pad]: per group, output channel n
+    and K index (dy * kw + dx) * ci_pg + c, zero padded to a multiple of 32 in
+    K (so any channel count works, 3 and 4 included) and to the kernel's N
+    tile in N."""
+    if weight.dtype != torch.int8 or weight.ndim != 4:
+        raise ValueError(f"pack_qconv2d_weights: weight must be int8 OIHW, got {weight.dtype} {tuple(weight.shape)}")
+    c_out, ci_pg, kh, kw = weight.shape
+    if groups <= 0 or c_out % groups:
+        raise ValueError(f"pack_qconv2d_weights: {c_out} output channels do not split into {groups} groups")
+    co_pg = c_out // groups
+    tile_n = _tile_n(co_pg)
+    k = kh * kw * ci_pg
+    packed = torch.zeros(groups, -(-co_pg // tile_n) * tile_n, -(-k // _K_STEP) * _K_STEP, dtype=torch.int8,
+                         device=weight.device)
+    packed[:, :co_pg, :k] = weight.reshape(groups, co_pg, ci_pg, kh, kw).permute(0, 1, 3, 4, 2).reshape(groups, co_pg, k)
+    return QConvWeight(weight.contiguous(), packed.contiguous(), int(groups), tile_n)
+
+
+def _per_channel(t: torch.Tensor) -> torch.Tensor:
+    return t.view(1, -1, 1, 1)
+
+
+def _requant(acc: torch.Tensor, epilogue: str, bias, relu: bool, rnd, shift, mult, clamp) -> torch.Tensor:
+    """The integer epilogue on an int32 accumulator, in int32 torch ops."""
+    if epilogue == "acc":
+        return acc
+    v = acc + _per_channel(bias)
+    if relu:
+        v = torch.clamp_min(v, 0)
+    return _to_int8(v, epilogue, rnd, shift, mult, clamp)
+
+
+def _to_int8(v: torch.Tensor, epilogue: str, rnd, shift, mult, clamp) -> torch.Tensor:
+    """The requant to int8 of a biased int32 accumulator: ``"shift"`` or ``"mul"``."""
+    if epilogue == "shift":
+        v = (v + _per_channel(rnd)) >> _per_channel(shift)
+    else:
+        c = _per_channel(clamp)
+        v = torch.minimum(torch.maximum(v, -c), c) * _per_channel(mult)
+        v = (v + (1 << (_MUL_SHIFT - 1))) >> _MUL_SHIFT
+    return v.clamp(-_QMAX, _QMAX).to(torch.int8)
+
+
+def _check_epilogue(epilogue, c_out, device, **params):
+    needs = {"acc": (), "shift": ("bias", "rnd", "shift"), "mul": ("bias", "mult", "clamp")}
+    if epilogue not in needs:
+        raise ValueError(f"epilogue must be one of {_EPILOGUES}, got {epilogue!r}")
+    for name in needs[epilogue]:
+        t = params[name]
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or tuple(t.shape) != (c_out,)
+                or not t.is_contiguous() or t.device != device):
+            raise ValueError(f"qconv2d: epilogue {epilogue!r} needs {name} as a contiguous int32 [{c_out}] "
+                             f"tensor on {device}")
+
+
+def qconv2d_reference(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
+                      padding: Sequence[int] = (0, 0, 0, 0), groups: int = 1, epilogue: str = "acc",
+                      bias: Optional[torch.Tensor] = None, relu: bool = False,
+                      rnd: Optional[torch.Tensor] = None, shift: Optional[torch.Tensor] = None,
+                      mult: Optional[torch.Tensor] = None, clamp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`qconv2d`, with OIHW int8 ``weight``.
+
+    The sum runs as ``F.conv2d`` in float64 on the int8 values, which is
+    exact: at most 4608 terms of at most 127^2 stay under 2^53 (float32 is
+    not: such sums pass 2^24).  It is cast to int32 and the epilogue runs in
+    int32 torch ops.  ``padding`` is (top, bottom, left, right)."""
+    top, bottom, left, right = padding
+    xd = F.pad(x.double(), (left, right, top, bottom))
+    acc = F.conv2d(xd, weight.double(), stride=stride, groups=groups).to(torch.int32)
+    out = _requant(acc, epilogue, bias, relu, rnd, shift, mult, clamp)
+    return out.contiguous(memory_format=_CL)
+
+
+def qconv2d(x: torch.Tensor, weight: QConvWeight, stride: int = 1, padding: Sequence[int] = (0, 0, 0, 0),
+            epilogue: str = "acc", bias: Optional[torch.Tensor] = None, relu: bool = False,
+            rnd: Optional[torch.Tensor] = None, shift: Optional[torch.Tensor] = None,
+            mult: Optional[torch.Tensor] = None, clamp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 convolution with an int32 accumulator and a fused integer epilogue.
+
+    Args:
+        x: [B, C_in, H, W] int8, ``torch.channels_last`` contiguous.
+        weight: from :func:`pack_qconv2d_weights` (carries ``groups``).
+        stride: the stride of both axes.
+        padding: explicit zero padding (top, bottom, left, right).
+        epilogue: ``"acc"``: the raw int32 accumulator; ``"shift"``:
+            ``clip((relu?(acc + bias) + rnd) >> shift, +-127)``; ``"mul"``:
+            ``clip((clamp(relu?(acc + bias), +-clamp) * mult + 2^22) >> 23,
+            +-127)``.  The per-channel operands are contiguous int32
+            [C_out] tensors on x's device.
+    Returns:
+        [B, C_out, Ho, Wo], int8 (int32 for ``"acc"``), ``torch.channels_last``.
+
+    CPU tensors take :func:`qconv2d_reference`; CUDA tensors launch Q1,
+    counted in ``qconv2d.launches`` and ``qconv2d.launches_by_route``.
+    """
+    if x.ndim != 4 or x.dtype != torch.int8 or not x.is_contiguous(memory_format=_CL):
+        raise ValueError(f"qconv2d: x must be a channels_last int8 [B, C, H, W] tensor, got {x.dtype} {tuple(x.shape)}")
+    if not isinstance(weight, QConvWeight):
+        raise ValueError("qconv2d: weight must come from pack_qconv2d_weights")
+    b, c_in, h, w = x.shape
+    c_out, ci_pg, kh, kw = weight.weight.shape
+    groups = weight.groups
+    if ci_pg * groups != c_in:
+        raise ValueError(f"qconv2d: weights take {ci_pg * groups} input channels, x has {c_in}")
+    top, bottom, left, right = (int(p) for p in padding)
+    if min(top, bottom, left, right) < 0 or stride <= 0:
+        raise ValueError(f"qconv2d: padding {tuple(padding)} and stride {stride} must be >= 0 and > 0")
+    ho = (h + top + bottom - kh) // stride + 1
+    wo = (w + left + right - kw) // stride + 1
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"qconv2d: a {kh}x{kw} kernel does not fit a padded {h}x{w} input")
+    params = dict(bias=bias, rnd=rnd, shift=shift, mult=mult, clamp=clamp)
+    _check_epilogue(epilogue, c_out, x.device, **params)
+    if weight.packed.device != x.device:
+        raise ValueError("qconv2d: x and the weights must be on one device")
+
+    if x.device.type == "cpu":
+        return qconv2d_reference(x, weight.weight, stride, (top, bottom, left, right), groups, epilogue, relu=relu,
+                                 **params)
+    if x.device.type != "cuda":
+        raise ValueError(f"qconv2d: unsupported device {x.device}")
+    out_dtype = torch.int32 if epilogue == "acc" else torch.int8
+    y = torch.empty(b, c_out, ho, wo, dtype=out_dtype, device=x.device, memory_format=_CL)
+    mode = _EPILOGUES.index(epilogue)
+    p0, p1 = (rnd, shift) if epilogue == "shift" else (mult, clamp)
+    ptr = lambda t: 0 if t is None or mode == 0 else t.data_ptr()  # noqa: E731
+    route = ctypes.c_int(0)
+    _, n_pad, k_pad = weight.packed.shape
+    err = _build.library().ptt_qconv2d(
+        x.device.index, x.data_ptr(), weight.packed.data_ptr(), ptr(bias), ptr(p0), ptr(p1), y.data_ptr(),
+        b, h, w, c_in, ho, wo, c_out, groups, kh, kw, stride, top, left, k_pad, n_pad, weight.tile_n, mode,
+        int(relu), ctypes.byref(route), _build.stream_of(x.device))
+    _build.check(err, "qconv2d")
+    qconv2d.launches += 1
+    qconv2d.launches_by_route[_CONV_ROUTES[route.value]] += 1
+    return y
+
+
+qconv2d.launches = 0
+qconv2d.launches_by_route = dict.fromkeys(_CONV_ROUTES.values(), 0)
+
+
+def _as_int8_matrix(m) -> np.ndarray:
+    if isinstance(m, torch.Tensor):
+        m = m.detach().cpu().numpy()
+    m = np.asarray(m)
+    if m.ndim != 2 or m.dtype != np.int8:
+        raise ValueError(f"q_upsample: interpolation matrices must be 2-D int8, got {m.dtype} {m.shape}")
+    return m
+
+
+def upsample_taps(m, device) -> torch.Tensor:
+    """[rows, 4] int32 (i0, i1, m0, m1) on ``device``: the two taps of each
+    row of an int8 [rows, cols] interpolation matrix (m1 = 0 where it has
+    one), as :func:`q_upsample` takes them."""
+    m = _as_int8_matrix(m)
+    taps = np.zeros((m.shape[0], 4), np.int32)
+    for o in range(m.shape[0]):
+        nz = np.flatnonzero(m[o])
+        if nz.size > 2:
+            raise ValueError(f"q_upsample: row {o} of an interpolation matrix has {nz.size} nonzero taps (at most 2)")
+        if nz.size:
+            taps[o, 0], taps[o, 1] = nz[0], nz[-1]
+            taps[o, 2] = m[o, nz[0]]
+            taps[o, 3] = m[o, nz[-1]] if nz.size == 2 else 0
+    return torch.from_numpy(taps).to(device)
+
+
+def _requant7(v: torch.Tensor) -> torch.Tensor:
+    return ((v + 64) >> 7).clamp(-_QMAX, _QMAX).to(torch.int8)
+
+
+def q_upsample_reference(x: torch.Tensor, mh, mw) -> torch.Tensor:
+    """Plain version of :func:`q_upsample`: the two einsums against the int8
+    matrices, in float64 (exact: at most H terms of 127^2 each), cast to
+    int32, each followed by the int32 requant ``clip((v + 64) >> 7, +-127)``."""
+    mh = torch.as_tensor(_as_int8_matrix(mh).astype(np.float64), device=x.device)
+    mw = torch.as_tensor(_as_int8_matrix(mw).astype(np.float64), device=x.device)
+    rows = _requant7(torch.einsum("nchw,oh->ncow", x.double(), mh).to(torch.int32))
+    cols = _requant7(torch.einsum("nchw,ow->ncho", rows.double(), mw).to(torch.int32))
+    return cols.contiguous(memory_format=_CL)
+
+
+def q_upsample(x: torch.Tensor, mh, mw, taps=None) -> torch.Tensor:
+    """Requantized int8 bilinear resize with quantized interpolation matrices.
+
+    Args:
+        x: [B, C, H, W] int8, ``torch.channels_last`` contiguous.
+        mh, mw: int8 [OH, H] and [OW, W] matrices (numpy arrays), at most two
+            nonzero entries per row, as ``zoo/quantized_unet.py``
+            ``_q_upsample_matrices`` builds them.
+        taps: ``(upsample_taps(mh, x.device), upsample_taps(mw, x.device))``
+            made once by the caller, or None to make them from the matrices
+            in this call.
+    Returns:
+        [B, C, OH, OW] int8, ``torch.channels_last``:
+        ``clip((mw @ clip((mh @ x + 64) >> 7) + 64) >> 7)`` per channel.
+
+    CPU tensors take :func:`q_upsample_reference`; CUDA tensors launch Q2,
+    counted in ``q_upsample.launches`` and ``q_upsample.launches_by_route``.
+    """
+    if x.ndim != 4 or x.dtype != torch.int8 or not x.is_contiguous(memory_format=_CL):
+        raise ValueError(f"q_upsample: x must be a channels_last int8 [B, C, H, W] tensor, got {x.dtype} {tuple(x.shape)}")
+    mh, mw = _as_int8_matrix(mh), _as_int8_matrix(mw)
+    b, c, h, w = x.shape
+    if mh.shape[1] != h or mw.shape[1] != w:
+        raise ValueError(f"q_upsample: matrices {mh.shape} and {mw.shape} do not fit a {h}x{w} input")
+    if x.device.type == "cpu":
+        return q_upsample_reference(x, mh, mw)
+    if x.device.type != "cuda":
+        raise ValueError(f"q_upsample: unsupported device {x.device}")
+    oh, ow = mh.shape[0], mw.shape[0]
+    rows, cols = taps if taps is not None else (upsample_taps(mh, x.device), upsample_taps(mw, x.device))
+    if any(t.shape != (n, 4) or t.dtype != torch.int32 or not t.is_contiguous() or t.device != x.device
+           for t, n in ((rows, oh), (cols, ow))):
+        raise ValueError(f"q_upsample: taps must be contiguous int32 [{oh}, 4] and [{ow}, 4] tensors on {x.device}")
+    y = torch.empty(b, c, oh, ow, dtype=torch.int8, device=x.device, memory_format=_CL)
+    route = ctypes.c_int(0)
+    err = _build.library().ptt_q_upsample(x.device.index, x.data_ptr(), y.data_ptr(), rows.data_ptr(),
+                                          cols.data_ptr(), b, h, w, c, oh, ow, ctypes.byref(route),
+                                          _build.stream_of(x.device))
+    _build.check(err, "q_upsample")
+    q_upsample.launches += 1
+    q_upsample.launches_by_route[_UPSAMPLE_ROUTES[route.value]] += 1
+    return y
+
+
+q_upsample.launches = 0
+q_upsample.launches_by_route = dict.fromkeys(_UPSAMPLE_ROUTES.values(), 0)

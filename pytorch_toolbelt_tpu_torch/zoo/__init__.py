@@ -5,6 +5,8 @@ from .fast_unet import fuse_unet_inference
 from .heads import ResizeHead
 from .models import EncoderDecoderModel, UNetSegmentationModel
 from .porting import load_flax_variables
+from .quantized_encdec import attribute_quantization_error, quantize_encoder_decoder_inference
+from .quantized_unet import quantize_unet_inference
 
 __all__ = [
     "EncoderDecoderModel",
@@ -12,7 +14,10 @@ __all__ = [
     "ResizeHead",
     "UNetDecoder",
     "UNetSegmentationModel",
+    "attribute_quantization_error",
     "fuse_unet_inference",
     "load_flax_variables",
+    "quantize_encoder_decoder_inference",
+    "quantize_unet_inference",
     *_encoders_all,
 ]

@@ -18,7 +18,10 @@ from pytorch_toolbelt_tpu_torch.ops import accumulate_tiles, accumulate_tiles_re
 from pytorch_toolbelt_tpu_torch.ops import conv3x3, conv3x3_reference, grid_merge, grid_merge_reference
 from pytorch_toolbelt_tpu_torch.ops import pack_conv3x3_weights
 from pytorch_toolbelt_tpu_torch.ops.conv_kernels import _pack_wmma, _route, _unpack
-from pytorch_toolbelt_tpu_torch.zoo import UNetSegmentationModel, fuse_unet_inference
+from pytorch_toolbelt_tpu_torch.ops import pack_qconv2d_weights, q_upsample, q_upsample_reference, qconv2d
+from pytorch_toolbelt_tpu_torch.ops import qconv2d_reference, upsample_taps
+from pytorch_toolbelt_tpu_torch.zoo import UNetSegmentationModel, fuse_unet_inference, quantize_unet_inference
+from pytorch_toolbelt_tpu_torch.zoo.quantized_unet import _build_int8_unet, _calibrate_unet, _q_upsample_matrices
 
 pytestmark = pytest.mark.cuda
 
@@ -427,6 +430,134 @@ def test_fused_unet_on_cuda_matches_module(dev):
 
 
 # ---------------------------------------------------------------------------
+# int8 inference: Q1 (qconv2d), Q2 (q_upsample) and the integer UNet
+# ---------------------------------------------------------------------------
+
+
+def _to(weight, dev):
+    return weight._replace(weight=weight.weight.to(dev), packed=weight.packed.to(dev))
+
+
+def _epilogue_operands(c_out, epilogue, gen, dev):
+    """Seeded int32 operands: biases of up to 2^20 (2^30 where ``wide`` makes
+    sums wrap), shifts 0-40 (32 and more leave the sign), multipliers with
+    their overflow clamps as ``_quantize_conv_mul`` makes them."""
+    bias = torch.randint(-(1 << 20), 1 << 20, (c_out,), generator=gen, dtype=torch.int32)
+    if epilogue == "shift":
+        shift = torch.randint(0, 41, (c_out,), generator=gen, dtype=torch.int32)
+        rnd = torch.where(shift > 0, torch.ones_like(shift) << (shift - 1).clamp(0, 30), 0).to(torch.int32)
+        ops = dict(bias=bias, rnd=rnd, shift=shift)
+    elif epilogue == "mul":
+        mult = torch.randint(1, 1 << 24, (c_out,), generator=gen, dtype=torch.int32)
+        clamp = torch.floor((2.0**31 - 1 - (1 << 22)) / mult.double()).to(torch.int32)
+        ops = dict(bias=bias, mult=mult, clamp=clamp)
+    else:
+        ops = {}
+    return {k: v.to(dev) for k, v in ops.items()}
+
+
+# (B, C_in, C_out, groups, kernel, stride, H, W, pads (top, bottom, left, right), epilogue, relu)
+_QCONV_CASES = {
+    "unet_stem": (2, 3, 32, 1, 3, 1, 64, 67, (1, 1, 1, 1), "shift", True),
+    "unet_32": (2, 32, 32, 1, 3, 1, 33, 64, (1, 1, 1, 1), "shift", True),
+    "unet_cat_384": (1, 384, 128, 1, 3, 1, 16, 21, (1, 1, 1, 1), "shift", True),
+    "unet_head": (2, 32, 1, 1, 3, 1, 37, 37, (1, 1, 1, 1), "acc", False),
+    "stem_7x7_s2": (2, 3, 64, 1, 7, 2, 64, 64, (3, 3, 3, 3), "mul", True),
+    "same_s2_even": (2, 64, 64, 1, 3, 2, 32, 32, (0, 1, 0, 1), "mul", True),
+    "same_s2_odd": (2, 64, 64, 1, 3, 2, 33, 31, (1, 1, 1, 1), "mul", True),
+    "grouped_4": (2, 128, 128, 32, 3, 1, 16, 16, (1, 1, 1, 1), "mul", True),
+    "grouped_8_s2": (2, 256, 256, 32, 3, 2, 16, 16, (0, 1, 0, 1), "mul", True),
+    "grouped_16": (1, 512, 512, 32, 3, 1, 8, 8, (1, 1, 1, 1), "mul", True),
+    "grouped_2": (2, 8, 8, 2, 3, 1, 9, 9, (1, 1, 1, 1), "shift", True),
+    "proj_1x1_s2": (2, 256, 512, 1, 1, 2, 16, 16, (0, 0, 0, 0), "mul", False),
+    "fpn_lateral": (2, 2048, 128, 1, 1, 1, 4, 4, (0, 0, 0, 0), "mul", False),
+    "c_in_4": (2, 4, 24, 1, 3, 1, 20, 20, (1, 1, 1, 1), "shift", False),
+    "acc_grouped": (2, 128, 128, 32, 3, 2, 15, 15, (1, 1, 1, 1), "acc", False),
+}
+
+
+@pytest.mark.parametrize("case", list(_QCONV_CASES))
+def test_qconv2d_equals_reference_bit_for_bit(dev, case):
+    b, c_in, c_out, groups, k, stride, h, w, pads, epilogue, relu = _QCONV_CASES[case]
+    gen = torch.Generator().manual_seed(sum(map(ord, case)))
+    x = torch.randint(-127, 128, (b, c_in, h, w), generator=gen, dtype=torch.int8)
+    weight = torch.randint(-127, 128, (c_out, c_in // groups, k, k), generator=gen, dtype=torch.int8)
+    ops = _epilogue_operands(c_out, epilogue, gen, dev)
+    x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    packed = _to(pack_qconv2d_weights(weight, groups), dev)
+    before = qconv2d.launches
+    got = qconv2d(x, packed, stride, pads, epilogue, relu=relu, **ops)
+    assert qconv2d.launches == before + 1
+    want = qconv2d_reference(x, weight.to(dev), stride, pads, groups, epilogue, relu=relu, **ops)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("route,c_in", [("mma_v16", 32), ("mma_v4", 12), ("mma_v1", 3)])
+def test_qconv2d_routes(dev, route, c_in):
+    gen = torch.Generator().manual_seed(c_in)
+    x = torch.randint(-127, 128, (1, c_in, 10, 10), generator=gen, dtype=torch.int8).to(dev)
+    weight = torch.randint(-127, 128, (8, c_in, 3, 3), generator=gen, dtype=torch.int8)
+    before = dict(qconv2d.launches_by_route)
+    got = qconv2d(x.contiguous(memory_format=torch.channels_last), _to(pack_qconv2d_weights(weight), dev),
+                  padding=(1, 1, 1, 1))
+    assert {k: qconv2d.launches_by_route[k] - n for k, n in before.items()} == {k: int(k == route) for k in before}
+    assert torch.equal(got, qconv2d_reference(x, weight.to(dev), padding=(1, 1, 1, 1)))
+
+
+def test_qconv2d_over_2_31_bytes_of_input(dev):
+    """Offsets past 2^31 bytes: the decoder's 96-channel 512^2 input at the main path's 128 views."""
+    x = torch.zeros(88, 96, 512, 512, dtype=torch.int8, device=dev).contiguous(memory_format=torch.channels_last)
+    x[-1, :, -3:, -3:] = torch.randint(-127, 128, (96, 3, 3), dtype=torch.int8, device=dev)
+    gen = torch.Generator().manual_seed(9)
+    weight = torch.randint(-127, 128, (32, 96, 3, 3), generator=gen, dtype=torch.int8)
+    got = qconv2d(x, _to(pack_qconv2d_weights(weight), dev), padding=(1, 1, 1, 1))
+    want = qconv2d_reference(x[-1:, :, -4:, -4:], weight.to(dev), padding=(1, 1, 1, 1))
+    assert torch.equal(got[-1:, :, -4:, -4:][:, :, 1:, 1:], want[:, :, 1:, 1:])
+
+
+@pytest.mark.parametrize("c,h,w,oh,ow", [(32, 8, 8, 16, 16), (64, 5, 7, 10, 13), (3, 7, 7, 13, 14),
+                                         (4, 32, 32, 64, 64), (256, 4, 4, 8, 8), (16, 1, 3, 2, 6)])
+def test_q_upsample_equals_reference_bit_for_bit(dev, c, h, w, oh, ow):
+    gen = torch.Generator().manual_seed(c * h * w)
+    x = torch.randint(-127, 128, (2, c, h, w), generator=gen, dtype=torch.int8)
+    x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    mh, mw, _ = _q_upsample_matrices(h, w, oh, ow)
+    before, by_route = q_upsample.launches, dict(q_upsample.launches_by_route)
+    got = q_upsample(x, mh, mw)
+    assert q_upsample.launches == before + 1
+    route = "v16" if c % 16 == 0 else "v4" if c % 4 == 0 else "v1"
+    assert q_upsample.launches_by_route[route] == by_route[route] + 1
+    assert got.shape == (2, c, oh, ow) and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, q_upsample_reference(x, mh, mw))
+    taps = (upsample_taps(mh, dev), upsample_taps(mw, dev))  # made once by the caller, as the int8 forwards do
+    assert torch.equal(q_upsample(x, mh, mw, taps=taps), got)
+    with pytest.raises(ValueError, match="taps must be"):
+        q_upsample(x, mh, mw, taps=taps[::-1] if oh != ow else (taps[0][:-1], taps[1]))
+
+
+def test_int8_unet_on_cuda_equals_its_plain_forward(dev):
+    """One calibration, the integer network built on the card (Q1, Q2) and on
+    the CPU (their plain versions): bit-equal logits."""
+    torch.manual_seed(0)
+    model = UNetSegmentationModel(num_classes=2, encoder_channels=16, num_layers=3).eval()
+    gen = torch.Generator().manual_seed(1)
+    cal_images, x = torch.rand(2, 3, 64, 64, generator=gen), torch.rand(3, 3, 64, 96, generator=gen)
+    cal = _calibrate_unet(model, cal_images, 1.0)
+    before, ups = qconv2d.launches, q_upsample.launches
+    got = _build_int8_unet(cal, 3, None, dev)(x.to(dev))
+    assert (qconv2d.launches - before, q_upsample.launches - ups) == (2 * (2 * 3 - 1) + 1, 2)
+    want = _build_int8_unet(cal, 3, None, torch.device("cpu"))(x)
+    assert torch.equal(got.cpu(), want)
+    # and calibrated on the card (TF32 off), it stays within int8 PTQ error of the float model
+    q = quantize_unet_inference(model.to(dev), cal_images.to(dev))(x.to(dev))
+    with torch.no_grad():
+        f = model(x.to(dev))
+    assert float(((q - f) ** 2).mean().sqrt() / (f**2).mean().sqrt()) < 0.06
+
+
+# ---------------------------------------------------------------------------
 # Strip-sharded tiled inference and 3D tiles on the card
 # ---------------------------------------------------------------------------
 
@@ -774,6 +905,15 @@ def _launch_each_entry_point(name, dev):
         grid_merge(tiles, weight, grid)
     elif name == "scatter_merge":
         accumulate_tiles(*_scatter_case(2, 64, 64, 32, 32, [(0, 0), (8, 8)], torch.float32, dev))
+    elif name == "qconv2d":
+        x = torch.randint(-127, 128, (1, 16, 8, 8), generator=gen, dtype=torch.int8)
+        w = torch.randint(-127, 128, (8, 16, 3, 3), generator=gen, dtype=torch.int8)
+        qconv2d(x.to(dev).contiguous(memory_format=torch.channels_last), _to(pack_qconv2d_weights(w), dev),
+                padding=(1, 1, 1, 1))
+    elif name == "q_upsample":
+        x = torch.randint(-127, 128, (1, 16, 8, 8), generator=gen, dtype=torch.int8)
+        mh, mw, _ = _q_upsample_matrices(8, 8, 16, 16)
+        q_upsample(x.to(dev).contiguous(memory_format=torch.channels_last), mh, mw)
     elif name in ("conv3x3_tma_wgmma", "conv3x3_ld_wgmma", "conv3x3_wmma"):
         c_in = 3 if name == "conv3x3_ld_wgmma" else 16
         pack = _pack_wmma if name == "conv3x3_wmma" else pack_conv3x3_weights
@@ -787,7 +927,7 @@ def _launch_each_entry_point(name, dev):
 
 
 @pytest.mark.parametrize("name", ["grid_merge", "scatter_merge", "conv3x3_tma_wgmma", "conv3x3_ld_wgmma",
-                                  "conv3x3_wmma", "K4", "K5"])
+                                  "conv3x3_wmma", "K4", "K5", "qconv2d", "q_upsample"])
 def test_entry_points_restore_the_current_device(dev, name):
     """A launch on cuda:1 tensors from a thread on cuda:0 leaves it on cuda:0."""
     if torch.cuda.device_count() < 2:

@@ -127,6 +127,13 @@ def test_distributed_guard_makes_and_ends_a_gloo_group(tmp_path):
     assert not torch.distributed.is_initialized()
 
 
+def test_distributed_guard_without_a_rank(tmp_path):
+    with tdist.DistributedGuard(f"file://{tmp_path / 'store'}", world_size=1, backend="gloo", timeout_s=60):
+        assert torch.distributed.is_initialized() and torch.distributed.get_rank() == 0
+        assert tdist.get_world_size() == 1
+    assert not torch.distributed.is_initialized()
+
+
 def test_distributed_guard_nccl_needs_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the error raised where there is no GPU")

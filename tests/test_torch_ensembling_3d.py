@@ -83,14 +83,26 @@ def test_ensembler_matches_jax(kind, reduction):
     _cmp(got, want)
 
 
-@pytest.mark.parametrize("kind,outputs", [("dict", ["mask"]), ("list", [1])])
+@pytest.mark.parametrize("kind,outputs", [("dict", ["mask"]), ("list", [1]), ("tensor", [0])])
 def test_ensembler_selected_outputs_match_jax(kind, outputs):
     x = np.random.RandomState(2).rand(2, 4, 4, 2).astype(np.float32)
     want = JE.Ensembler(_members(kind), outputs=outputs)(jnp.asarray(x))
     got = Ensembler(_members(kind), outputs=outputs)(_nchw(x))
+    if kind == "tensor":  # output[0] of a tensor is its first image: [C, H, W] here, [H, W, C] in JAX
+        got, want = [g[None] for g in got], [w[None] for w in want]
     _cmp(got, want)
     if kind == "dict":
         assert set(got) == {"mask"}
+
+
+def test_ensembler_selected_tensor_output_reduces_over_the_members():
+    x = np.random.RandomState(5).rand(2, 3, 4, 4).astype(np.float32)
+    members = [lambda t, k=k: t * k for k in (1.0, 2.0, 3.0)]
+    want = JE.Ensembler(members, outputs=[0])(jnp.asarray(x))
+    got = Ensembler(members, outputs=[0])(torch.from_numpy(x))
+    assert len(got) == len(want) == 1 and got[0].shape == (3, 4, 4)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-6)
+    np.testing.assert_allclose(got[0].numpy(), 2 * x[0], rtol=1e-6)
 
 
 def test_ensembler_reduction_none_and_callable():
