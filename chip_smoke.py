@@ -13,7 +13,8 @@ config-4 loss suite, streaming tiled inference of SEResNeXt50-FPN through
 ResNet34-UNet through tiled d4 inference, pad -> d2 TTA -> unpad on one
 image, config 5's strip-sharded tiled inference under an nccl process
 group, an ensemble and 3D tiles, config 2 in int8 and the int8
-SEResNeXt50-FPN -- and holds each against an independent plain path.  Weights and
+SEResNeXt50-FPN, and training config 3's model at config 4's shape -- and
+holds each against an independent plain path.  Weights and
 data are random, made from a seed.
 
 Phases, each printed on its own line:
@@ -131,7 +132,26 @@ Phases, each printed on its own line:
      profiled by kind; the int8 SEResNeXt50-FPN(128) with 19 classes
      (``quantize_encoder_decoder_inference``) at 1024^2: Q1 and Q2 at each
      distinct call bit for bit and timed, ms per forward and per config-3
-     d4 + multiscale TTA call, relative RMS against the fp32 forward.
+     d4 + multiscale TTA call, relative RMS against the fp32 forward;
+ 17. training (slice F), under an nccl group of world size 1: config 3's
+     model (SEResNeXt50-FPN(128), 19 classes, train mode, fp32, channels_last)
+     under ``data_parallel`` (DDP), CE-focal + 0.5 Lovasz-Softmax (K4 sorts
+     [19, 2^23] each step), ``make_optimizer``'s AdamW; one step at batch 2,
+     512^2 against a plain step on a copy (the plain losses written here,
+     ``torch.sort``): loss, every gradient, BN running statistics, one K4
+     launch; then batches of 8 x 3 x 1024^2 (config 4's logits) drawn by
+     ``RandomSubsetDataset`` from 16 seeded samples, ``default_collate``d and
+     put on the card by ``prefetch_to_device`` under ``batch_sharding``:
+     the warm-up step's peak memory (the batch is halved if it does not
+     fit, on a line of its own), 5 timed steps (ms per step, images/s, MP/s,
+     peak memory, losses), 2 steps under ``torch.profiler`` (idle share,
+     device time by kind, top kernels, K4's kernels), K4 once per step; the
+     step in NCHW against channels_last in turns; ``save_checkpoint`` after
+     step 3, step 4, ``load_checkpoint`` into a fresh model and optimizer
+     with the RNG restored, step 4 again in deterministic mode: loss,
+     parameters and buffers bit-equal; the port's example
+     (``examples.train_segmentation.main()``) at its defaults, its tiled d4
+     tail on K1.
 
 Device times are medians over five windows of CUDA events; each phase
 prints the spread (min-max) of its kernel's windows beside the median.
@@ -217,6 +237,20 @@ INT8_SIZE, INT8_CAL_IMAGES = 1024, 2
 INT8_PTQ_RMS = 0.15
 INT8_KINDS = (("Q1 (int8 conv)", r"qconv_kernel"), ("Q2 (int8 upsample)", r"q_upsample_kernel"), ("K1", r"grid_merge"),
               ("cat", r"CatArray"), ("max pooling (torch.maximum)", r"maximum|max_"))
+# Phase 17: training (slice F).  Config 3's model (SEResNeXt50-FPN(128), 19 classes) trained at config 4's shape:
+# batches of 8 x 3 x 1024^2, so the logits are config 4's [8, 19, 1024, 1024]; CE-focal + 0.5 Lovasz-Softmax
+TRAIN_BATCH, TRAIN_SIZE = 8, 1024
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SIZE = 2, 512  # the step against the plain step
+TRAIN_STEPS, TRAIN_PROFILED_STEPS = 5, 2  # timed after one warm-up step; then two under torch.profiler
+TRAIN_SAMPLES = 16  # seeded (image, mask) pairs that RandomSubsetDataset draws from
+TRAIN_LOSS_RTOL = 1e-4  # the loss against the plain step's, relative
+TRAIN_GRAD_TOL = 1e-3  # every gradient against the plain step's, relative to max|g| over the model
+TRAIN_STATS_TOL = 1e-5  # BN running means and variances, absolute + relative
+TRAIN_KINDS = (("K4", r"radix_"), ("BatchNorm", r"[Bb]atch_?[Nn]orm|bn_fw|bn_bw|welford"),
+               ("Lovasz cumsum", r"[Ss]can|cumsum"), ("scatter_", r"scatter"), ("bilinear upsample", r"upsample"),
+               ("AdamW", r"multi_tensor"), ("nccl", r"nccl"), ("cuDNN layout transforms", r"nhwcToNchw|nchwToNhwc"),
+               ("cuDNN conv wgrad", r"wgrad"), ("cuDNN conv dgrad", r"dgrad"),
+               ("cuDNN conv fprop and FFT", r"xmma|cutlass|cudnn|fprop|convolve|conv2d|gemm|fft"))
 # (kind, pattern of the kernel names) for phase 12's device time; the first match counts
 DEVICE_KINDS = (("K1", r"grid_merge"), ("cuDNN convs", r"xmma|cutlass|cudnn|fprop|dgrad|convolve"),
                 ("BatchNorm", r"batch_norm"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"))
@@ -790,7 +824,7 @@ def _sort_account(name, sort, keys, payload, design_bytes, ms, library_ms, what,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sort(keys, payload)
         torch.cuda.synchronize()
-    ops = [(_short_kernel_name(op), (end - start) / 1e3) for start, end, op in _device_events(prof)]
+    ops = [(_short_kernel_name(op), (end - start) / 1e3) for start, end, op, _ in _device_events(prof)]
     launches = f"{len(ops)} launches per sort" if ops else "launches per sort not measured (no CUDA events)"
     log(f"[7] {name} {what}: {ms}; {launches}; design bytes {design_bytes / 1e9:.2f} GB "
         f"= {design_bytes / HBM_RATE * 1e3:.3f} ms at {HBM_RATE / 1e12:.2f} TB/s, {design_bytes / ms / 1e6:.0f} GB/s "
@@ -1214,6 +1248,12 @@ def config3_model(dev):
     (measured on the CPU at 128^2; ~1% with the cut)."""
     import copy
 
+    model = config3_module().eval().to(dev, memory_format=torch.channels_last)
+    return model, copy.deepcopy(model).to(torch.bfloat16)
+
+
+def config3_module():
+    """config3_model's fp32 module on the CPU, before its device and mode."""
     from pytorch_toolbelt_tpu_torch.zoo import EncoderDecoderModel, FPNDecoder, ResizeHead, se_resnext50_encoder
 
     encoder = se_resnext50_encoder()
@@ -1224,8 +1264,7 @@ def config3_model(dev):
         for name, p in model.named_parameters():
             if name.endswith(("bn3.weight", "downsample.1.weight")):
                 p.mul_(RESIDUAL_BN_SCALE)
-    model = model.eval().to(dev, memory_format=torch.channels_last)
-    return model, copy.deepcopy(model).to(torch.bfloat16)
+    return model
 
 
 def image_forward(model, dtype):
@@ -1259,28 +1298,36 @@ def stream_tiled(forward, image, slicer, dev, use_pallas=True, keep=None):
 
 
 def _device_events(prof) -> list:
-    """(start us, end us, name) of each kernel, copy and memset a profile saw
-    on the card, in the order they started; empty if it saw no CUDA events."""
+    """(start us, end us, name, stream) of each kernel, copy and memset a
+    profile saw on the card, in the order they started; empty if it saw no
+    CUDA events.  Ranges that ``record_function`` marks on the card's
+    timeline (DDP's forward, say) are not device work and are left out."""
     from torch.autograd import DeviceType
 
-    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
+    return sorted((e.time_range.start, e.time_range.end, e.name, getattr(e, "device_resource_id", None))
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
 
 
-def _device_busy_ms(prof) -> float:
-    """Union of the device intervals (kernels, copies) a profile saw, in ms."""
+def _busy_ms(events) -> float:
+    """Union of the (start us, end us, ...) intervals, in ms."""
     busy, end = 0.0, float("-inf")
-    for a, b, _ in _device_events(prof):
+    for a, b, *_ in events:
         if b > end:
             busy += b - max(a, end)
             end = b
     return busy / 1e3
 
 
+def _device_busy_ms(prof) -> float:
+    """Union of the device intervals (kernels, copies) a profile saw, in ms."""
+    return _busy_ms(_device_events(prof))
+
+
 def _device_ms_by_name(prof) -> dict:
     """Device time in ms of each kernel or copy name a profile saw."""
     by_name = {}
-    for a, b, name in _device_events(prof):
+    for a, b, name, _ in _device_events(prof):
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
     return by_name
 
@@ -2270,6 +2317,396 @@ def phase_int8(dev, smi, model, fused, t_start):
     return kernels, launches.get("grid_merge", 0), launches.get("grid_merge_by_route", {})
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: training (slice F) -- config 3's model trained at config 4's shape
+# ---------------------------------------------------------------------------
+
+
+class _SeededSegmentation:
+    """``n`` (image, mask) pairs made from a seed, a map-style dataset: [S, S] int32 masks of CLASSES classes in
+    a 16 x 16 grid of blocks, and [3, S, S] float32 images that paint each class its own colour (0.7) under
+    uniform noise (0.3), so that the model can learn them."""
+
+    def __init__(self, n: int, size: int, seed: int):
+        rng = np.random.RandomState(seed)
+        colours = rng.rand(CLASSES, 3).astype(np.float32)
+        block = size // 16
+        self.images, self.masks = [], []
+        for _ in range(n):
+            mask = rng.randint(0, CLASSES, (16, 16)).astype(np.int32).repeat(block, 0).repeat(block, 1)
+            self.masks.append(mask)
+            self.images.append(colours[mask].transpose(2, 0, 1) * 0.7 + rng.rand(3, size, size).astype(np.float32) * 0.3)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, i):
+        return self.images[i], self.masks[i]
+
+
+def _train_loss():
+    """The port's CE-focal + 0.5 Lovasz-Softmax (per_image=False) on the softmax of the logits."""
+    from pytorch_toolbelt_tpu_torch import losses as L
+
+    lovasz = L.LovaszLoss(per_image=False)
+    return L.JointLoss(L.CrossEntropyFocalLoss(), lambda x, y: lovasz(torch.softmax(x, 1), y), 1.0, 0.5)
+
+
+def _plain_train_loss(x, t):
+    return plain_ce_focal(x, t.long()) + 0.5 * plain_lovasz_softmax(torch.softmax(x, 1), t)
+
+
+def _train_setup(dev, mesh):
+    """Config 3's model in train mode (fp32, NCHW), wrapped by ``data_parallel`` over the mesh, and the example's
+    AdamW over ``make_optimizer``'s groups: (module, wrapped module, optimizer)."""
+    from pytorch_toolbelt_tpu_torch.distributed import data_parallel
+    from pytorch_toolbelt_tpu_torch.optimization import make_optimizer
+
+    model = config3_module().train().to(dev)
+    optimizer = make_optimizer(model, 1e-3, 1e-4, torch.optim.AdamW, apply_weight_decay_on_norm=False,
+                               apply_weight_decay_on_bias=False, betas=(0.9, 0.999), eps=1e-8)
+    return model, data_parallel(model, mesh), optimizer
+
+
+def _train_step(net, optimizer, loss_fn, x, y):
+    loss = loss_fn(net(x), y)
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def _batches(dataset, batch: int, steps: int, mesh, size: int = 2):
+    """``steps`` batches of ``batch`` samples drawn by RandomSubsetDataset (python's RNG), collated by
+    default_collate and put on the card by prefetch_to_device under batch_sharding."""
+    from pytorch_toolbelt_tpu_torch.datasets import RandomSubsetDataset, default_collate, prefetch_to_device
+    from pytorch_toolbelt_tpu_torch.distributed import batch_sharding
+
+    subset = RandomSubsetDataset(dataset, batch * steps)
+    host = (default_collate([subset[i * batch + j] for j in range(batch)]) for i in range(steps))
+    return prefetch_to_device(host, size=size, sharding=batch_sharding(mesh, 4))
+
+
+@contextlib.contextmanager
+def _plain_bn_statistics(model):
+    """While the block runs, forward pre-hooks on every BatchNorm of ``model`` compute from the norm's own input
+    the running statistics it should hold after a training forward, as flax updates them: (1 - m) old + m batch,
+    in float64, the batch variance biased (over n).  Yields {module name: (mean, var)}."""
+    expected = {}
+
+    def record(name):
+        def hook(module, inputs):
+            x = inputs[0].detach().double()
+            m = module.momentum
+            mean, var = x.mean((0, 2, 3)), x.var((0, 2, 3), unbiased=False)
+            expected[name] = ((1 - m) * module.running_mean.double() + m * mean,
+                              (1 - m) * module.running_var.double() + m * var)
+        return hook
+
+    hooks = [module.register_forward_pre_hook(record(name)) for name, module in model.named_modules()
+             if isinstance(module, torch.nn.modules.batchnorm._BatchNorm)]
+    try:
+        yield expected
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def _check_train_step(dev, mesh, smi) -> None:
+    """One step of the port (DDP, the library's losses, Lovasz's sort on K4) against a plain step on a copy of the
+    same model (the plain losses, torch.sort): the loss, every gradient, and the BN running statistics against
+    those computed from each norm's input in the plain step."""
+    import copy
+
+    from pytorch_toolbelt_tpu_torch.distributed import data_parallel
+    from pytorch_toolbelt_tpu_torch.ops import bitonic_sort_chunked
+
+    model = config3_module().train().to(dev)
+    plain = copy.deepcopy(model)
+    net = data_parallel(model, mesh)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    b, size = TRAIN_CHECK_BATCH, TRAIN_CHECK_SIZE
+    x = torch.rand(b, 3, size, size, device=dev, generator=gen)
+    y = torch.randint(0, CLASSES, (b, size, size), device=dev, generator=gen, dtype=torch.int32)
+    k4 = bitonic_sort_chunked.launches
+    loss = _train_loss()(net(x), y)
+    loss.backward()
+    sorts = bitonic_sort_chunked.launches - k4
+    with _plain_bn_statistics(plain) as expected:
+        want = _plain_train_loss(plain(x), y)
+    want.backward()
+    loss_err = abs(loss.item() - want.item()) / abs(want.item())
+    pairs = list(zip(model.named_parameters(), plain.named_parameters()))
+    scale = max(float(q.grad.abs().max()) for _, q in plain.named_parameters())
+    grad_err, worst = max((float((p.grad - q.grad).abs().max()), name) for (name, p), (_, q) in pairs)
+    norms = dict(model.named_modules())
+    stats = [(getattr(norms[name], buffer).double(), value) for name, pair in expected.items()
+             for buffer, value in zip(("running_mean", "running_var"), pair)]
+    stats_err = max(float(((a - b_).abs() / (1 + b_.abs())).max()) for a, b_ in stats)
+    ok = (math.isfinite(loss.item()) and loss_err <= TRAIN_LOSS_RTOL and grad_err <= TRAIN_GRAD_TOL * scale
+          and stats_err <= TRAIN_STATS_TOL and sorts == 1)
+    log(f"[17] check: one training step at batch {b}, {size}^2 (DDP, nccl world 1) against the plain step on a copy: "
+        f"loss {loss.item():.7g} vs {want.item():.7g}, rel err {loss_err:.2e} <= {TRAIN_LOSS_RTOL:.0e}; gradients "
+        f"max|err| {grad_err:.3e} <= {TRAIN_GRAD_TOL:.0e} x max|g| {scale:.3e} (worst {worst}); {len(stats)} BN running "
+        f"statistics against (1 - m) old + m x (biased batch variance) from each norm's input in the plain step: max err "
+        f"{stats_err:.2e} <= {TRAIN_STATS_TOL:.0e} (relative to 1 + |expected|); K4 launches {sorts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the training step disagrees with the plain step")
+
+
+def _full_width_run(dev, mesh, smi, dataset):
+    """Config 3's model trained on batches of TRAIN_BATCH x 3 x TRAIN_SIZE^2: the warm-up step's peak memory (the
+    batch is halved if it does not fit), TRAIN_STEPS timed steps, TRAIN_PROFILED_STEPS under torch.profiler.
+    Returns K4's launches in these steps."""
+    from pytorch_toolbelt_tpu_torch.ops import bitonic_sort_chunked
+
+    loss_fn = _train_loss()
+    total = 1 + TRAIN_STEPS + TRAIN_PROFILED_STEPS
+    for batch in (TRAIN_BATCH, TRAIN_BATCH // 2):
+        model, net, optimizer = _train_setup(dev, mesh)
+        batches = _batches(dataset, batch, total, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bitonic_sort_chunked.launches = 0
+        try:
+            loss = _train_step(net, optimizer, loss_fn, *next(batches))
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            del model, net, optimizer, batches
+            torch.cuda.empty_cache()
+            log(f"[17] cut: batch {batch} does not fit in the card's memory; batch {batch // 2} from here on")
+    else:
+        raise AssertionError("config 3's training step fits at no batch")
+    first_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in model.parameters())
+    mp = batch * TRAIN_SIZE**2 / 1e6
+    log(f"[17] full width: SEResNeXt50-FPN(128), 19 classes, train mode fp32 (TF32 off), NCHW, DDP (nccl world "
+        f"1), batch {batch} x 3 x {TRAIN_SIZE}^2 -> logits [{batch}, {CLASSES}, {TRAIN_SIZE}, {TRAIN_SIZE}]; "
+        f"CE-focal + 0.5 Lovasz-Softmax; AdamW; warm-up step loss {loss.item():.5f}, peak {first_peak:.2f} GiB "
+        f"allocated; the model's {n_params / 1e6:.2f}M parameters with their gradients and AdamW moments "
+        f"{4 * n_params * 4 / 2**30:.2f} GiB; one [{batch}, {CLASSES}, {TRAIN_SIZE}, {TRAIN_SIZE}] fp32 tensor "
+        f"{batch * CLASSES * TRAIN_SIZE**2 * 4 / 2**30:.2f} GiB ({smi})")
+
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        losses.append(_train_step(net, optimizer, loss_fn, *next(batches)))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    steps = Timing([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+    losses = torch.stack(losses).tolist()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training losses {losses}")
+    log(f"[17] full width: {steps} per step between CUDA events, {wall:.1f} ms per step on the host's clock "
+        f"({TRAIN_STEPS} steps, batches through prefetch_to_device); {batch / steps * 1e3:.2f} images/s, "
+        f"{mp / steps * 1e3:.2f} MP/s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; losses "
+        + ", ".join(f"{v:.5f}" for v in losses) + f" ({smi})")
+
+    def profiled_steps():
+        for _ in range(TRAIN_PROFILED_STEPS):
+            _train_step(net, optimizer, loss_fn, *next(batches))
+
+    _log_training_profile(profiled_steps, smi)
+    launches = bitonic_sort_chunked.launches
+    log(f"[17] K4 (radix_sort) launches in the {total} steps: {launches} {'ok' if launches == total else 'FAIL'}")
+    if launches != total:
+        raise AssertionError(f"K4 launched {launches} times in {total} training steps")
+    return launches
+
+
+def _log_training_profile(fn, smi) -> None:
+    """Run TRAIN_PROFILED_STEPS steps (``fn``) under torch.profiler; log per step the idle share, the device time
+    by kind (each kind's kernel time summed, and the time the card ran any of its kernels: the card runs kernels
+    of several streams at once, so the sums may add up to more than the busy time), the top kernels and K4's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = TRAIN_PROFILED_STEPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _device_events(prof)
+    if not events:
+        log("[17] profiled steps: device time not measured (the profiler saw no CUDA events)")
+        return
+    busy = _busy_ms(events)
+    kinds, by_name = {}, {}
+    for a, b, name, stream in events:
+        kind = next((k for k, pattern in TRAIN_KINDS if re.search(pattern, name)), "other elementwise and copies")
+        kinds.setdefault(kind, []).append((a, b))
+        entry = by_name.setdefault(name, [0.0, set()])
+        entry[0] += (b - a) / 1e3
+        entry[1].add(stream)
+    summed = sum(b - a for a, b, *_ in events) / 1e3
+    streams = len({stream for *_, stream in events})
+    log(f"[17] profiled steps ({n}): wall {wall_ms / n:.1f} ms per step, device busy {busy / n:.1f} ms (idle "
+        f"{1 - busy / wall_ms:.1%}); kernel time {summed / n:.1f} ms per step on {streams} streams; per step by kind, "
+        "summed (on the timeline): "
+        + ", ".join(f"{k} {sum(b - a for a, b in iv) / 1e3 / n:.2f} ({_busy_ms(sorted(iv)) / n:.2f}) ms"
+                    for k, iv in sorted(kinds.items(), key=lambda kv: -sum(b - a for a, b in kv[1])))
+        + f" ({smi})")
+    for name, (ms, on) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        log(f"[17]   device {ms / n:8.2f} ms per step, {len(on)} stream(s)  {name[:100]}")
+    k4 = {}
+    for name, (ms, _) in by_name.items():
+        match = SORT_KERNEL.search(name)
+        if match:
+            k4[match.group(1)] = k4.get(match.group(1), 0.0) + ms / n
+    log(f"[17] K4 per step (one launch: a memset and six kernels): {sum(k4.values()):.3f} ms = "
+        f"{sum(k4.values()) / (busy / n):.2%} of the busy time: "
+        + ", ".join(f"{kernel} {ms:.3f}" for kernel, ms in sorted(k4.items(), key=lambda kv: -kv[1])))
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms and torch's deterministic mode, which warns on an op that has none;
+    yields the list of warnings caught."""
+    import warnings
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def _checkpoint_round_trip(dev, mesh, dataset, tmp: str) -> None:
+    """Three steps, save_checkpoint, a fourth step; then a fresh model and optimizer, load_checkpoint, the RNG
+    restored (RandomSubsetDataset draws the same samples), the fourth step again: bit-equal loss and parameters."""
+    from pytorch_toolbelt_tpu_torch.utils import get_rng_state, load_checkpoint, save_checkpoint
+    from pytorch_toolbelt_tpu_torch.utils import set_manual_seed, set_rng_state
+
+    loss_fn = _train_loss()
+    set_manual_seed(SEED + 17)
+    model, net, optimizer = _train_setup(dev, mesh)
+    for _ in range(3):
+        _train_step(net, optimizer, loss_fn, *next(_batches(dataset, TRAIN_BATCH, 1, mesh)))
+    path = os.path.join(tmp, "step3.pt")
+    t0 = time.perf_counter()
+    save_checkpoint(path, {"model": model, "optimizer": optimizer, "step": 3, "rng": get_rng_state()})
+    save_s, size_mb = time.perf_counter() - t0, os.path.getsize(path) / 1e6
+    with _deterministic() as caught:
+        want_loss = _train_step(net, optimizer, loss_fn, *next(_batches(dataset, TRAIN_BATCH, 1, mesh)))
+    want = [t.detach().clone() for t in list(model.parameters()) + list(model.buffers())]
+    del model, net, optimizer
+    torch.cuda.empty_cache()
+
+    model, net, optimizer = _train_setup(dev, mesh)
+    t0 = time.perf_counter()
+    state = load_checkpoint(path, target={"model": model, "optimizer": optimizer})
+    set_rng_state(state["rng"])
+    load_s = time.perf_counter() - t0
+    with _deterministic() as caught_again:
+        got_loss = _train_step(net, optimizer, loss_fn, *next(_batches(dataset, TRAIN_BATCH, 1, mesh)))
+    got = list(model.parameters()) + list(model.buffers())
+    differing = sum(not torch.equal(a, b) for a, b in zip(got, want))
+    ok = state["step"] == 3 and torch.equal(got_loss, want_loss) and differing == 0
+    notes = sorted({str(w.message).split(".")[0] for w in list(caught) + list(caught_again)})
+    log(f"[17] checkpoint: save after step 3 {save_s:.2f} s ({size_mb:.0f} MB), load + RNG restore {load_s:.2f} s; "
+        f"step 4 loss {want_loss.item():.7g}, replayed {got_loss.item():.7g}; {len(got) - differing} of {len(got)} "
+        f"parameters and buffers bit-equal {'ok' if ok else 'FAIL'}"
+        + (f"; deterministic mode warned: {notes}" if notes else ""))
+    if not ok:
+        raise AssertionError("the replayed step 4 differs from the original")
+
+
+@contextlib.contextmanager
+def _recorded_grid_merges():
+    """While the block runs, record every call of K1 that tiled_apply makes (``inference/tiles.py`` calls
+    ``grid_merge`` by its name there): its arguments and its output, cloned.  Yields the list of records."""
+    from pytorch_toolbelt_tpu_torch.inference import tiles
+
+    real, calls = tiles.grid_merge, []
+
+    def wrapped(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append(([a.clone() if torch.is_tensor(a) else a for a in args], dict(kwargs), out.clone()))
+        return out
+
+    tiles.grid_merge = wrapped
+    try:
+        yield calls
+    finally:
+        tiles.grid_merge = real
+
+
+def _run_example(smi):
+    """The port's example at its defaults on the card; then each K1 call of its tiled d4 tail bit for bit against
+    the plain merge on the call's own inputs, and K1 alone at that shape.  Returns K1's launches in the example,
+    in all and by route."""
+    import io
+
+    from pytorch_toolbelt_tpu_torch.examples.train_segmentation import main as example_main
+    from pytorch_toolbelt_tpu_torch.ops import grid_merge, grid_merge_reference
+
+    _reset_merge_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out, _recorded_grid_merges() as calls:
+        result = example_main()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_route = grid_merge.launches, dict(grid_merge.launches_by_route)
+    for line in out.getvalue().splitlines():
+        log(f"[17] example: {line}")
+    errors = [float((got.float() - grid_merge_reference(*args, **kwargs).float()).abs().max())
+              for args, kwargs, got in calls]
+    prediction = result["prediction"]
+    ok = (len(result["losses"]) == 5 and all(math.isfinite(v) for v in result["losses"])
+          and prediction.is_cuda and tuple(prediction.shape) == (2, 512, 512)
+          and bool(torch.isfinite(prediction).all()) and launches >= 1 and len(calls) == launches
+          and all(err <= MERGE_TOL for err in errors))
+    log(f"[17] example: pytorch_toolbelt_tpu_torch.examples.train_segmentation.main() {wall:.1f} s (20 steps at "
+        f"batch 8, 128^2, then tiled d4 at 512^2); K1 launches {launches} {by_route}, each call's output against "
+        f"grid_merge_reference on its inputs max|err| {max(errors, default=float('nan')):.3e} <= {MERGE_TOL:.0e} "
+        f"{'ok' if ok else 'FAIL'} ({smi})")
+    if not ok:
+        raise AssertionError("the port's example failed on the card")
+    args, kwargs, _ = calls[0]
+    _k1_at(*args[:3], kwargs["out_hw"], kwargs["offset"], smi, "[17]")
+    return launches, by_route
+
+
+def phase_training(dev, smi):
+    """Slice F's training path on config 3's model at config 4's shape, under an nccl group of world size 1; then
+    the port's example.  Returns (K4's launches in the full-width run, K1's launches and by route in the example)."""
+    import tempfile
+
+    from pytorch_toolbelt_tpu_torch.distributed import DistributedGuard, get_world_size, make_mesh
+
+    t0 = time.perf_counter()
+    dataset = _SeededSegmentation(TRAIN_SAMPLES, TRAIN_SIZE, SEED + 17)
+    log(f"[17] {TRAIN_SAMPLES} seeded samples of {TRAIN_SIZE}^2 made in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp, DistributedGuard(f"file://{tmp}/store", world_size=1, rank=0,
+                                                                backend="nccl", timeout_s=300):
+        if torch.distributed.get_backend() != "nccl" or get_world_size() != 1:
+            raise AssertionError("phase 17 needs an nccl group of world size 1")
+        mesh = make_mesh()
+        _check_train_step(dev, mesh, smi)
+        torch.cuda.empty_cache()
+        k4 = _full_width_run(dev, mesh, smi, dataset)
+        torch.cuda.empty_cache()
+        _checkpoint_round_trip(dev, mesh, dataset, tmp)
+    torch.cuda.empty_cache()
+    merges, merges_by_route = _run_example(smi)
+    log(f"[17] phase 17: {time.perf_counter() - t0:.1f} s")
+    return k4, merges, merges_by_route
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2320,6 +2757,13 @@ def main() -> int:
     int8_kernels, int8_merges, int8_merges_by_route = phase_int8(dev, smi, model, fused, t_start)
     launches["grid_merge"] += int8_merges
     for route, n in int8_merges_by_route.items():
+        launches["grid_merge_by_route"][route] += n
+    del model, fused
+    torch.cuda.empty_cache()
+    train_sorts, example_merges, example_merges_by_route = phase_training(dev, smi)
+    sort_launches["radix_sort"] += train_sorts
+    launches["grid_merge"] += example_merges
+    for route, n in example_merges_by_route.items():
         launches["grid_merge_by_route"][route] += n
 
     kernels = [

@@ -6,18 +6,25 @@ become CUDA kernels written for Hopper (``csrc/``), built by ``nvcc`` on
 first use on a CUDA tensor; on CPU tensors every kernel wrapper runs its
 plain PyTorch version.
 
-  core/        model-building contracts
+  core/        model-building contracts, the deprecation helper
   nn/          building blocks (activations, normalization, resize, UNet block)
   zoo/         UNet encoder / decoder / head, models, flax weight bridge, fused UNet
   inference/   tiled huge-image inference with d4 TTA, ensembling, 3D tiles
-  distributed/ process-group helpers and strip-sharded tiled inference (config 5)
+  distributed/ process groups, the (data, spatial) mesh and DDP, strip-sharded tiled
+               inference (config 5)
   losses/      segmentation and classification losses (Lovasz sorts on K4 / K5)
   ops/         the CUDA kernels' wrappers and their plain versions
-  utils/       cost-balanced bucket assignment
+  optimization/ param groups for one torch optimizer, learning-rate schedules
+  datasets/    sample keys, collate, dataset wrappers, prefetch to the card
+  utils/       checkpoints, seeding and RNG state, profiling, tensor / fs / name helpers,
+               cost-balanced bucket assignment
+  examples/    training a UNet on synthetic blobs, then tiled d4 inference
 """
 
 __version__ = "0.1.0"
 
-from . import core, distributed, inference, losses, nn, ops, utils, zoo
+from . import core, datasets, distributed, inference, losses, nn, ops, optimization, utils, zoo
 
-__all__ = ["core", "distributed", "inference", "losses", "nn", "ops", "utils", "zoo", "__version__"]
+__all__ = [
+    "core", "datasets", "distributed", "inference", "losses", "nn", "ops", "optimization", "utils", "zoo", "__version__",
+]

@@ -1,3 +1,4 @@
 from .interfaces import FeatureMapsSpec, FeatureMapsSpecification
+from .support import DeprecationError, toolbelt_deprecated
 
-__all__ = ["FeatureMapsSpec", "FeatureMapsSpecification"]
+__all__ = ["DeprecationError", "FeatureMapsSpec", "FeatureMapsSpecification", "toolbelt_deprecated"]

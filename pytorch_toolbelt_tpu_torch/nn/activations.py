@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .normalization import BatchNorm2d
+
 __all__ = [
     "ABN",
     "AGN",
@@ -161,7 +163,7 @@ class ABN(nn.Module):
     def __init__(self, num_features: int, activation: str = ACT_RELU, slope: float = 0.01, eps: float = 1e-5,
                  momentum: float = 0.1):
         super().__init__()
-        self.norm = nn.BatchNorm2d(num_features, eps=eps, momentum=momentum)
+        self.norm = BatchNorm2d(num_features, eps=eps, momentum=momentum)
         self.act = instantiate_activation_block(activation, slope=slope)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,18 @@
 """Normalization registry (counterpart of ``pytorch_toolbelt_tpu/nn/normalization.py``).
 
 Accepts every spelling the JAX package accepts.  ``momentum`` follows torch's
-convention: torch 0.1 is flax 0.9.  In training mode torch updates
-``running_var`` with the unbiased batch variance where flax uses the biased
-one; the normalised output is the same.
+convention: torch 0.1 is flax 0.9.  Batch norms are :class:`BatchNorm2d`,
+whose training mode updates ``running_var`` with the biased batch variance,
+as flax does.
 """
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["NORM_BATCH", "NORM_GROUP", "NORM_INSTANCE", "Normalization", "instantiate_normalization_block"]
+__all__ = ["BatchNorm2d", "NORM_BATCH", "NORM_GROUP", "NORM_INSTANCE", "Normalization", "instantiate_normalization_block"]
 
 NORM_BATCH = "batch_norm"
 NORM_INSTANCE = "instance_norm"
@@ -26,6 +27,33 @@ _INSTANCE_ALIASES = {
     "in", "instance", "instance2d", "instance_norm", "instancenorm", "instance_norm_2d",
     "instancenorm2d", "in3d", "instance3d", "instance_norm_3d", "instancenorm3d",
 }
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training mode updates ``running_var`` with
+    the biased batch variance (sum of squares over n), as flax's BatchNorm
+    does; torch's uses the unbiased one (over n - 1).  The output is torch's.
+
+    torch's kernel updates a copy of the running variance to
+    ``(1 - m) * old + m * n / (n - 1) * var``; the module keeps
+    ``(1 - m) * old`` and scales the rest by (n - 1) / n: a few elementwise
+    ops on [C] and no extra pass over the input.  The copy, not the buffer,
+    is what the kernel's backward saves, so the buffer may change after.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats and self.running_var is not None):
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        m = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+        updated = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, updated, self.weight, self.bias, True, m, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            kept = self.running_var * (1.0 - m)
+            self.running_var.copy_((updated - kept) * ((n - 1) / n) + kept)
+        return y
 
 
 class Normalization(nn.Module):
@@ -44,7 +72,7 @@ class Normalization(nn.Module):
         self.kind = kind
         k = kind.lower()
         if k in _BATCH_ALIASES:
-            self.norm = nn.BatchNorm2d(num_channels, eps=eps, momentum=momentum)
+            self.norm = BatchNorm2d(num_channels, eps=eps, momentum=momentum)
         elif k in _GROUP_ALIASES:
             self.norm = nn.GroupNorm(num_groups or 32, num_channels, eps=eps)
         elif k in _INSTANCE_ALIASES:

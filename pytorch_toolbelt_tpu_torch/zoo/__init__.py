@@ -4,7 +4,7 @@ from .encoders import __all__ as _encoders_all
 from .fast_unet import fuse_unet_inference
 from .heads import ResizeHead
 from .models import EncoderDecoderModel, UNetSegmentationModel
-from .porting import load_flax_variables
+from .porting import flax_name_map, load_flax_variables
 from .quantized_encdec import attribute_quantization_error, quantize_encoder_decoder_inference
 from .quantized_unet import quantize_unet_inference
 
@@ -16,6 +16,7 @@ __all__ = [
     "UNetSegmentationModel",
     "attribute_quantization_error",
     "fuse_unet_inference",
+    "flax_name_map",
     "load_flax_variables",
     "quantize_encoder_decoder_inference",
     "quantize_unet_inference",

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from ...core.interfaces import FeatureMapsSpec
+from ...nn.normalization import BatchNorm2d
 
 __all__ = [
     "EncoderBase",
@@ -29,8 +30,8 @@ __all__ = [
 BN_MOMENTUM = 0.01
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, momentum=BN_MOMENTUM)
+def _bn(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, momentum=BN_MOMENTUM)
 
 
 def _take(elements: Sequence[Any], indexes: Sequence[int]) -> List[Any]:

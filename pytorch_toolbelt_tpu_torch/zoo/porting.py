@@ -28,6 +28,10 @@ composite models' and ``GenericEncoder``'s attributes, the SENet's own
 names (``layer0_conv1``, ``layer{s}_{i}/conv1``, ``.../se/se_fc1``) and the
 FPN decoder's ``Conv_0..Conv_{L-1}`` (the laterals fine -> coarse, then one
 prediction conv per fused level, the second-coarsest first).
+
+:func:`flax_name_map` gives the reverse map, torch name -> flax path, which
+the parity tests use to compare gradients, param groups and running
+statistics with the JAX package's.
 """
 
 from typing import Callable, Dict, Iterator, List, Mapping, Tuple
@@ -41,7 +45,7 @@ from .encoders.common import GenericEncoder
 from .encoders.senet import SENetBottleneck, SENetEncoder, SEModule
 from .models import EncoderDecoderModel, UNetSegmentationModel
 
-__all__ = ["load_flax_variables"]
+__all__ = ["flax_name_map", "load_flax_variables"]
 
 _Leaf = Tuple[str, Tuple[str, ...], torch.Tensor, Callable[[np.ndarray], np.ndarray]]
 
@@ -171,3 +175,13 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     if unset:
         raise ValueError(f"module tensors left unset: {unset}")
     return model
+
+
+def flax_name_map(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
+    """{torch parameter or buffer name: (flax collection, flax path)} for
+    every tensor :func:`load_flax_variables` fills, e.g.
+    ``'encoder.layer0.conv1.weight' -> ('params', ('encoder', 'layer0_conv1', 'kernel'))``.
+    The layout change of each tensor is the one ``load_flax_variables`` applies."""
+    name_of = {id(t): name for name, t in model.named_parameters()}
+    name_of.update({id(t): name for name, t in model.named_buffers()})
+    return {name_of[id(tensor)]: (collection, path) for collection, path, tensor, _ in _leaves(model, ())}

@@ -937,3 +937,105 @@ def test_entry_points_restore_the_current_device(dev, name):
         _launch_each_entry_point(name, other)
         torch.cuda.synchronize(other)
         assert torch.cuda.current_device() == 0
+
+
+# ---------------------------------------------------------------------------
+# Training (slice F): one step on the card against the CPU; prefetch_to_device
+# ---------------------------------------------------------------------------
+
+
+def _narrow_seresnext_fpn():
+    from pytorch_toolbelt_tpu_torch.zoo import EncoderDecoderModel, FPNDecoder, ResizeHead, SENetEncoder
+
+    encoder = SENetEncoder(kind="seresnext", stage_blocks=(1, 1, 1, 1), groups=32, base_width=4)
+    decoder = FPNDecoder(encoder.get_output_spec(), out_channels=32)
+    return EncoderDecoderModel(encoder, decoder, ResizeHead(decoder.get_output_spec(), num_classes=5))
+
+
+@pytest.mark.parametrize("loss_kind", ["dice_ce", "ce_lovasz"])
+def test_training_step_on_cuda_matches_cpu(dev, loss_kind):
+    """One training step of a narrow SEResNeXt-FPN (train mode, the port's
+    BatchNorm2d) on the card and on the CPU: the loss within 1e-4 relative,
+    every gradient within 1e-3 * max|g| over the model (cuDNN and the CPU's
+    convolutions add in other orders through 16 BatchNorms in train mode),
+    the running statistics within 1e-5 (absolute + relative); then the
+    example's AdamW step runs on the card."""
+    import copy
+
+    from pytorch_toolbelt_tpu_torch import losses as L
+    from pytorch_toolbelt_tpu_torch.ops import bitonic_sort_chunked
+    from pytorch_toolbelt_tpu_torch.optimization import make_optimizer
+
+    torch.manual_seed(0)
+    cpu_model = _narrow_seresnext_fpn().train()
+    cuda_model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(1)
+    x, y = torch.rand(2, 3, 64, 64, generator=gen), torch.randint(0, 5, (2, 64, 64), generator=gen, dtype=torch.int32)
+    if loss_kind == "dice_ce":
+        loss_fn = L.JointLoss(L.DiceLoss(mode="multiclass"), L.CrossEntropyFocalLoss(), 1.0, 0.5)
+    else:
+        lovasz = L.LovaszLoss(per_image=False)
+        loss_fn = L.JointLoss(L.CrossEntropyFocalLoss(), lambda p, t: lovasz(torch.softmax(p, 1), t), 1.0, 0.5)
+    values = []
+    for model, device in ((cpu_model, torch.device("cpu")), (cuda_model, dev)):
+        before = bitonic_sort_chunked.launches
+        value = loss_fn(model(x.to(device)), y.to(device))
+        value.backward()
+        assert bitonic_sort_chunked.launches - before == (1 if device.type == "cuda" and loss_kind == "ce_lovasz" else 0)
+        values.append(value.item())
+    assert abs(values[1] - values[0]) <= 1e-4 * abs(values[0])
+    scale = max(float(p.grad.abs().max()) for p in cpu_model.parameters())
+    for (name, a), (_, b) in zip(cpu_model.named_parameters(), cuda_model.named_parameters()):
+        assert float((b.grad.cpu() - a.grad).abs().max()) <= 1e-3 * scale, name
+    for (name, a), (_, b) in zip(cpu_model.named_buffers(), cuda_model.named_buffers()):
+        if name.endswith(("running_mean", "running_var")):
+            assert float(((b.cpu() - a).abs() / (1 + a.abs())).max()) <= 1e-5, name
+    before = [p.detach().clone() for p in cuda_model.parameters()]
+    make_optimizer(cuda_model, 1e-3, 1e-4, torch.optim.AdamW, apply_weight_decay_on_bias=False,
+                   apply_weight_decay_on_norm=False).step()
+    after = list(cuda_model.parameters())
+    assert all(torch.isfinite(p).all() for p in after)
+    assert sum(not torch.equal(a, b) for a, b in zip(after, before)) == len(after)
+
+
+def test_prefetch_to_device_overlaps_copies_and_keeps_content(dev):
+    """Batches go host -> card on a side stream while a kernel runs on the
+    consumer's stream, and arrive unchanged.  The consumer frees each batch
+    while its stream still reads it (a 20 ms spin, then a sum): without
+    record_stream the next copy could take that memory.  The sums are of
+    small integers in fp32, exact in any order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_toolbelt_tpu_torch.datasets import prefetch_to_device
+
+    rng = np.random.RandomState(0)
+    host = [(rng.randint(0, 8, (8, 3, 256, 256)).astype(np.float32), rng.randint(0, 5, (8, 256, 256)).astype(np.int32))
+            for _ in range(6)]
+    want = [(float(x.sum()), int(y.sum())) for x, y in host]
+    sums = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for x, y in prefetch_to_device(host, size=2, device=dev):
+            assert x.is_cuda and y.is_cuda and x.dtype == torch.float32 and y.dtype == torch.int32
+            torch.cuda._sleep(20_000_000)  # ~10-20 ms on the consumer's stream
+            sums.append((x.sum(), y.sum()))
+            del x, y  # freed while the consumer's stream still has to read them
+        torch.cuda.synchronize()
+    assert [(float(a), int(b)) for a, b in sums] == want
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [(e.time_range.start, e.time_range.end) for e in events if "HtoD" in e.name]
+    spins = [(e.time_range.start, e.time_range.end) for e in events if "spin" in e.name.lower()]
+    if not copies or not spins:
+        pytest.skip("the profiler saw no CUDA copies or kernels here")
+    assert any(a < d and c < b for a, b in copies for c, d in spins), "no copy ran while the consumer's kernel ran"
+
+
+def test_make_mesh_and_prefetch_default_to_the_card(dev):
+    from pytorch_toolbelt_tpu_torch.datasets import prefetch_to_device
+    from pytorch_toolbelt_tpu_torch.distributed import batch_sharding, make_mesh
+
+    mesh = make_mesh()
+    assert mesh.device_type == "cuda" and mesh.mesh_dim_names == ("data", "spatial")
+    (x,) = next(prefetch_to_device([(np.arange(12, dtype=np.float32).reshape(4, 3),)], sharding=batch_sharding(mesh)))
+    assert x.device == torch.device("cuda", torch.cuda.current_device())
+    assert torch.equal(x.cpu(), torch.arange(12.0).reshape(4, 3))
