@@ -13,8 +13,9 @@ config-4 loss suite, streaming tiled inference of SEResNeXt50-FPN through
 ResNet34-UNet through tiled d4 inference, pad -> d2 TTA -> unpad on one
 image, config 5's strip-sharded tiled inference under an nccl process
 group, an ensemble and 3D tiles, config 2 in int8 and the int8
-SEResNeXt50-FPN, and training config 3's model at config 4's shape -- and
-holds each against an independent plain path.  Weights and
+SEResNeXt50-FPN, training config 3's model at config 4's shape, and
+DeepLabV3+ on a ResNet-50 through tiled d4 inference -- and holds each
+against an independent plain path.  Weights and
 data are random, made from a seed.
 
 Phases, each printed on its own line:
@@ -151,7 +152,21 @@ Phases, each printed on its own line:
      with the RNG restored, step 4 again in deterministic mode: loss,
      parameters and buffers bit-equal; the port's example
      (``examples.train_segmentation.main()``) at its defaults, its tiled d4
-     tail on K1.
+     tail on K1;
+ 18. DeepLabV3+ on a ResNet-50 (``resnet50_encoder(layers=(1, 4))``,
+     ``DeeplabV3PlusDecoder`` at segmentation_models_pytorch's defaults:
+     ASPP 256, low level 48, rates (12, 24, 36), out 256; ResizeHead(19);
+     cuDNN convs, eager, bf16, channels_last; residual branches' last BN
+     scales x 0.25) through ``tiled_apply_d4_tta``: at 2048^2 in both modes
+     against the plain path on the fp32 model (TF32 off), every K1 launch on
+     the cell route; K1 alone at the 5000^2 K = 19 shape, bit for bit and
+     timed beside its bound, the plain version and ``F.fold``; one 5000^2
+     distributed run at batch 64 after a warm-up run for its wall time, MP/s,
+     peak memory and K1's route; under ``torch.profiler`` the idle share,
+     device time by kind (cuDNN convs, depthwise convs, BatchNorm, upsample,
+     cat, K1, elementwise passes) and the top kernels; the ASPP alone (its
+     dilated and depthwise convs, at the run's coarse map) per run; the
+     phase's own seconds.
 
 Device times are medians over five windows of CUDA events; each phase
 prints the spread (min-max) of its kernel's windows beside the median.
@@ -251,9 +266,18 @@ TRAIN_KINDS = (("K4", r"radix_"), ("BatchNorm", r"[Bb]atch_?[Nn]orm|bn_fw|bn_bw|
                ("AdamW", r"multi_tensor"), ("nccl", r"nccl"), ("cuDNN layout transforms", r"nhwcToNchw|nchwToNhwc"),
                ("cuDNN conv wgrad", r"wgrad"), ("cuDNN conv dgrad", r"dgrad"),
                ("cuDNN conv fprop and FFT", r"xmma|cutlass|cudnn|fprop|convolve|conv2d|gemm|fft"))
+# Phase 18: DeepLabV3+ on a ResNet-50 at segmentation_models_pytorch.DeepLabV3Plus's defaults (ASPP 256, low-level
+# projection 48, rates (12, 24, 36), decoder out 256); the timed run and the bf16 check against the fp32 plain path
+DEEPLAB_DECODER = dict(out_channels=256, aspp_channels=256, low_level_channels=48, atrous_rates=(12, 24, 36))
+DEEPLAB_SIZE, DEEPLAB_CHECK_SIZE = 5000, 2048
 # (kind, pattern of the kernel names) for phase 12's device time; the first match counts
 DEVICE_KINDS = (("K1", r"grid_merge"), ("cuDNN convs", r"xmma|cutlass|cudnn|fprop|dgrad|convolve"),
                 ("BatchNorm", r"batch_norm"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"))
+# and for phase 18's: the separable ASPP's dilated depthwise convs (cuDNN's grouped direct kernel) apart from the rest
+DEEPLAB_KINDS = (("K1", r"grid_merge"), ("ASPP dilated depthwise convs", r"[Dd]epthwise|grouped_direct"),
+                 ("cuDNN convs", r"xmma|cutlass|cudnn|fprop|dgrad|convolve|conv2d|gemm"),
+                 ("BatchNorm", r"batch_norm|bn_fw"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"),
+                 ("ReLU (clamp)", r"clamp"), ("residual add", r"CUDAFunctor_add"), ("max pooling", r"max_pool"))
 # and for phase 14's (the fused UNet-32 of config 5)
 CONFIG5_KINDS = (("K1", r"grid_merge"), ("K2", r"conv3x3"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"),
                  ("max pooling", r"max_pool"))
@@ -2707,6 +2731,119 @@ def phase_training(dev, smi):
     return k4, merges, merges_by_route
 
 
+def deeplab_r50(dev):
+    """DeepLabV3+ on a ResNet-50: ``resnet50_encoder(layers=(1, 4))`` (the
+    stride-4 and stride-32 maps), ``DeeplabV3PlusDecoder(**DEEPLAB_DECODER)``,
+    ResizeHead(19); seeded weights.  As in resnet34_unet, every Bottleneck's
+    last BN and its shortcut BN get their scales cut by RESIDUAL_BN_SCALE, so
+    that activations stay of order one.  Returns the fp32 and the bf16 model,
+    both channels_last."""
+    import copy
+
+    from pytorch_toolbelt_tpu_torch.zoo import DeeplabV3PlusDecoder, EncoderDecoderModel, ResizeHead, resnet50_encoder
+    from pytorch_toolbelt_tpu_torch.zoo.encoders.resnet import Bottleneck
+
+    encoder = resnet50_encoder(layers=(1, 4))
+    decoder = DeeplabV3PlusDecoder(encoder.get_output_spec(), **DEEPLAB_DECODER)
+    model = seed_weights(EncoderDecoderModel(encoder, decoder, ResizeHead(decoder.get_output_spec(),
+                                                                            num_classes=CLASSES)), SEED + 18)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.mul_(RESIDUAL_BN_SCALE)
+                if m.downsample is not None:
+                    m.downsample[-1].weight.mul_(RESIDUAL_BN_SCALE)
+    model = model.eval().to(dev, memory_format=torch.channels_last)
+    return model, copy.deepcopy(model).to(torch.bfloat16)
+
+
+@torch.no_grad()
+def phase_deeplab(dev, smi):
+    """DeepLabV3+ on a ResNet-50 through tiled d4 inference: at 2048^2 in
+    both modes against the plain path on the fp32 model; K1 alone at the
+    5000^2 K = 19 shape; one 5000^2 distributed run for its wall time, peak
+    memory and K1's route; under torch.profiler the idle share, device time
+    by kind and top kernels; the ASPP alone.  Returns K1's launches and
+    launches by route in the main path's runs."""
+    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, tiled_apply_d4_tta
+    from pytorch_toolbelt_tpu_torch.ops import grid_merge
+
+    t0 = time.perf_counter()
+    model, model_bf16 = deeplab_r50(dev)
+    forward = image_forward(model_bf16, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    check = torch.rand(3, DEEPLAB_CHECK_SIZE, DEEPLAB_CHECK_SIZE, device=dev, generator=gen)
+    runs = (("distributed", DIST_BATCH), ("full", FULL_BATCH))
+    torch.cuda.synchronize()
+    _reset_merge_counts()
+    outs = {mode: tiled_apply_d4_tta(forward, check, TILE, STEP, weight="pyramid", batch_size=batch, mode=mode)
+            for mode, batch in runs}
+    torch.cuda.synchronize()
+    launches = {"grid_merge": grid_merge.launches, "grid_merge_by_route": dict(grid_merge.launches_by_route)}
+    log(f"[18] DeepLabV3+-R50 main path launches at {DEEPLAB_CHECK_SIZE}^2: {launches}")
+    _check_merge_routes(f"[18] {DEEPLAB_CHECK_SIZE}^2 runs", len(runs))
+    for mode, batch in runs:
+        got = outs.pop(mode).float()
+        ref = plain_tiled_d4(model, check, mode)
+        err, tol = float((got - ref).abs().max()), PATH_TOL * float(ref.abs().max())
+        ok = (got.shape == (CLASSES, DEEPLAB_CHECK_SIZE, DEEPLAB_CHECK_SIZE) and bool(torch.isfinite(got).all())
+              and err <= tol)
+        log(f"[18] DeepLabV3+-R50 tiled_apply_d4_tta {DEEPLAB_CHECK_SIZE}^2 mode={mode} batch={batch}, bf16 vs the "
+            f"plain path on the fp32 model (TF32 off): max|err| {err:.3e} <= {tol:.3e} (5e-2 * max|ref| "
+            f"{float(ref.abs().max()):.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the DeepLabV3+-R50 tiled d4 path mode={mode} disagrees with the plain path")
+        del got, ref
+    del model
+
+    slicer = ImageSlicer((DEEPLAB_SIZE, DEEPLAB_SIZE), TILE, STEP, weight="pyramid")
+    ty, tx = ((t - TILE) // STEP + 1 for t in slicer.target_shape)
+    stack = torch.randn(ty * tx, CLASSES, TILE, TILE, device=dev, generator=gen)
+    weight = torch.as_tensor(slicer.weight.astype(np.float32), device=dev)
+    _k1_at(stack, weight, (ty, tx, STEP, STEP), (DEEPLAB_SIZE, DEEPLAB_SIZE), (slicer.margin_top, slicer.margin_left),
+           smi, phase="[18]")
+    del stack
+    torch.cuda.empty_cache()
+
+    image = torch.rand(3, DEEPLAB_SIZE, DEEPLAB_SIZE, device=dev, generator=gen)
+    run = lambda: tiled_apply_d4_tta(forward, image, TILE, STEP, weight="pyramid", batch_size=DIST_BATCH,  # noqa: E731
+                                     mode="distributed")
+    run()  # warm-up: cuDNN picks its algorithms for these shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_merge_counts()
+    t1 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if out.shape != (CLASSES, DEEPLAB_SIZE, DEEPLAB_SIZE) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"the DeepLabV3+-R50 {DEEPLAB_SIZE}^2 run gave a wrong shape or non-finite values")
+    del out
+    by_route = dict(grid_merge.launches_by_route)
+    log(f"[18] DeepLabV3+-R50 tiled_apply_d4_tta {DEEPLAB_SIZE}^2 distributed batch={DIST_BATCH} bf16: {wall:.3f} s, "
+        f"{DEEPLAB_SIZE**2 / 1e6 / wall:.2f} MP/s, peak {peak:.2f} GiB allocated; K1 launches by route {by_route} at "
+        f"K = {CLASSES} ({smi})")
+    _check_merge_routes(f"[18] {DEEPLAB_SIZE}^2 distributed", 1)
+    launches["grid_merge"] += grid_merge.launches
+    for route, n in by_route.items():
+        launches["grid_merge_by_route"][route] += n
+
+    coarse = []  # every batch's coarse map, kept by a hook during the profiled run (after the peak was read)
+    hook = model_bf16.decoder.aspp.register_forward_pre_hook(lambda m, args: coarse.append(args[0]))
+    _log_profile_by_kind(f"[18] profiled {DEEPLAB_SIZE}^2 distributed run", run, DEEPLAB_KINDS, smi, top=12)
+    hook.remove()
+    aspp = model_bf16.decoder.aspp
+    aspp_ms = cuda_ms(lambda: [aspp(x) for x in coarse], reps=2)
+    log(f"[18] the ASPP alone (dilated 3x3 depthwise + 1x1 branches, pooling, projection) on the run's "
+        f"{len(coarse)} coarse maps ({sum(x.shape[0] for x in coarse)} views of {list(coarse[0].shape[1:])} bf16, "
+        f"batches of {sorted({x.shape[0] for x in coarse})}): {aspp_ms} per run ({smi})")
+    del coarse, model_bf16, image
+    torch.cuda.empty_cache()
+    log(f"[18] phase 18: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2764,6 +2901,11 @@ def main() -> int:
     sort_launches["radix_sort"] += train_sorts
     launches["grid_merge"] += example_merges
     for route, n in example_merges_by_route.items():
+        launches["grid_merge_by_route"][route] += n
+    torch.cuda.empty_cache()
+    deeplab = phase_deeplab(dev, smi)
+    launches["grid_merge"] += deeplab["grid_merge"]
+    for route, n in deeplab["grid_merge_by_route"].items():
         launches["grid_merge_by_route"][route] += n
 
     kernels = [

@@ -7,8 +7,11 @@ first use on a CUDA tensor; on CPU tensors every kernel wrapper runs its
 plain PyTorch version.
 
   core/        model-building contracts, the deprecation helper
-  nn/          building blocks (activations, normalization, resize, UNet block)
-  zoo/         UNet encoder / decoder / head, models, flax weight bridge, fused UNet
+  nn/          building blocks (activations, normalization, resize, UNet block,
+               depthwise-separable convs, ASPP, FPN fusion, global pools)
+  zoo/         encoders, decoders (UNet, FPN, DeepLabV3/V3+, PPM, CAN, BiFPN), heads,
+               models, flax weight bridge, fused UNet, int8 inference
+  modules.py   nn + zoo in one namespace, as the reference's ``pytorch_toolbelt.modules``
   inference/   tiled huge-image inference with d4 TTA, ensembling, 3D tiles
   distributed/ process groups, the (data, spatial) mesh and DDP, strip-sharded tiled
                inference (config 5)

@@ -1,4 +1,18 @@
-from .interfaces import FeatureMapsSpec, FeatureMapsSpecification
+from .interfaces import (
+    AbstractDecoder,
+    AbstractHead,
+    FeatureMapsSpec,
+    FeatureMapsSpecification,
+    HasOutputFeaturesSpecification,
+)
 from .support import DeprecationError, toolbelt_deprecated
 
-__all__ = ["DeprecationError", "FeatureMapsSpec", "FeatureMapsSpecification", "toolbelt_deprecated"]
+__all__ = [
+    "AbstractDecoder",
+    "AbstractHead",
+    "DeprecationError",
+    "FeatureMapsSpec",
+    "FeatureMapsSpecification",
+    "HasOutputFeaturesSpecification",
+    "toolbelt_deprecated",
+]

@@ -3,16 +3,24 @@
 
 An encoder maps an image batch to a list of feature maps ordered fine ->
 coarse, a decoder maps that list to a new list, a head maps the list to the
-task output.  Feature maps are NCHW.
+task output.  Feature maps are NCHW.  The contracts are structural
+(``runtime_checkable`` protocols): a module satisfies them by having
+``get_output_spec``, and ``isinstance`` checks that.
 """
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Protocol, Sequence, Tuple, runtime_checkable
 
 import numpy as np
 import torch
 
-__all__ = ["FeatureMapsSpec", "FeatureMapsSpecification"]
+__all__ = [
+    "AbstractDecoder",
+    "AbstractHead",
+    "FeatureMapsSpec",
+    "FeatureMapsSpecification",
+    "HasOutputFeaturesSpecification",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,3 +58,24 @@ class FeatureMapsSpec:
 
 
 FeatureMapsSpecification = FeatureMapsSpec
+
+
+@runtime_checkable
+class HasOutputFeaturesSpecification(Protocol):
+    """Anything that can describe its output feature pyramid."""
+
+    def get_output_spec(self) -> FeatureMapsSpec: ...
+
+
+@runtime_checkable
+class AbstractDecoder(HasOutputFeaturesSpecification, Protocol):
+    """Decoder contract: list of feature maps -> list of feature maps."""
+
+    def __call__(self, feature_maps: Sequence[torch.Tensor]) -> List[torch.Tensor]: ...
+
+
+@runtime_checkable
+class AbstractHead(HasOutputFeaturesSpecification, Protocol):
+    """Head contract: list of feature maps -> task output (tensor, tuple or dict)."""
+
+    def __call__(self, feature_maps: Sequence[torch.Tensor]): ...

@@ -1,13 +1,37 @@
-"""The initialisers the upsample layers use (counterpart of part of
-``pytorch_toolbelt_tpu/nn/initialization.py``).  Each fills a torch weight
-in place and returns it; JAX's build an HWIO array from a key."""
+"""Initialisers (counterpart of ``pytorch_toolbelt_tpu/nn/initialization.py``).
+Each fills a torch weight or bias in place and returns it; JAX's build an
+HWIO array (or a bias) from a key."""
 
+import math
 from typing import Callable
 
 import torch
 from torch import nn
 
-__all__ = ["bilinear_upsample_initializer", "icnr_init"]
+__all__ = ["bilinear_upsample_initializer", "first_class_background_init_bias", "icnr_init", "zeros_kernel_init"]
+
+
+def _logit(p: float) -> float:
+    return math.log(p / (1.0 - p))
+
+
+@torch.no_grad()
+def zeros_kernel_init(weight: torch.Tensor) -> torch.Tensor:
+    return weight.zero_()
+
+
+def first_class_background_init_bias(background_prob: float = 0.95) -> Callable:
+    """Bias initialiser [logit(bg), logit(fg), logit(fg), ...] with
+    bg = ``background_prob`` and fg = 1 - bg, for detection-style heads.
+    Pair it with ``zeros_kernel_init`` on the weight."""
+
+    @torch.no_grad()
+    def init(bias: torch.Tensor) -> torch.Tensor:
+        bias.fill_(_logit(1.0 - background_prob))
+        bias[0] = _logit(background_prob)
+        return bias
+
+    return init
 
 
 @torch.no_grad()

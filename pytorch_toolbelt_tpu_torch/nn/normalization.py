@@ -1,9 +1,10 @@
 """Normalization registry (counterpart of ``pytorch_toolbelt_tpu/nn/normalization.py``).
 
 Accepts every spelling the JAX package accepts.  ``momentum`` follows torch's
-convention: torch 0.1 is flax 0.9.  Batch norms are :class:`BatchNorm2d`,
-whose training mode updates ``running_var`` with the biased batch variance,
-as flax does.
+convention: torch 0.1 is flax 0.9, and ``BN_MOMENTUM`` is flax's default
+0.99 (a bare ``nn.BatchNorm``).  Batch norms are :class:`BatchNorm2d` (and
+:class:`BatchNorm1d` on ``[B, F]``), whose training mode updates
+``running_var`` with the biased batch variance, as flax does.
 """
 
 from typing import Optional
@@ -12,11 +13,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["BatchNorm2d", "NORM_BATCH", "NORM_GROUP", "NORM_INSTANCE", "Normalization", "instantiate_normalization_block"]
+__all__ = [
+    "BN_MOMENTUM", "BatchNorm1d", "BatchNorm2d", "NORM_BATCH", "NORM_GROUP", "NORM_INSTANCE", "Normalization",
+    "instantiate_normalization_block",
+]
 
 NORM_BATCH = "batch_norm"
 NORM_INSTANCE = "instance_norm"
 NORM_GROUP = "group_norm"
+
+# flax's BatchNorm momentum of 0.99, in torch's convention
+BN_MOMENTUM = 0.01
 
 _BATCH_ALIASES = {
     "bn", "batch", "batch2d", "batch_norm", "batch_norm_2d", "batchnorm", "batchnorm2d",
@@ -29,8 +36,8 @@ _INSTANCE_ALIASES = {
 }
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose training mode updates ``running_var`` with
+class _BiasedRunningVariance:
+    """Training mode of a torch batch norm that updates ``running_var`` with
     the biased batch variance (sum of squares over n), as flax's BatchNorm
     does; torch's uses the unbiased one (over n - 1).  The output is torch's.
 
@@ -54,6 +61,15 @@ class BatchNorm2d(nn.BatchNorm2d):
             kept = self.running_var * (1.0 - m)
             self.running_var.copy_((updated - kept) * ((n - 1) / n) + kept)
         return y
+
+
+class BatchNorm2d(_BiasedRunningVariance, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-variance update."""
+
+
+class BatchNorm1d(_BiasedRunningVariance, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` with flax's running-variance update; flax's
+    BatchNorm on a ``[B, F]`` input."""
 
 
 class Normalization(nn.Module):

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ...core.interfaces import FeatureMapsSpec
-from ...nn.normalization import BatchNorm2d
+from ...nn.normalization import BN_MOMENTUM, BatchNorm2d
 
 __all__ = [
     "EncoderBase",
@@ -25,9 +25,6 @@ __all__ = [
     "find_stem_kernel_path",
     "make_n_channel_input_kernel",
 ]
-
-# flax's BatchNorm momentum of 0.99, in torch's convention
-BN_MOMENTUM = 0.01
 
 
 def _bn(channels: int) -> BatchNorm2d:

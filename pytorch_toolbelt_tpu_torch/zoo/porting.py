@@ -10,9 +10,15 @@ numpy arrays, so the port needs no jax, and fills the matching torch module:
 * ``ConvTranspose`` kernel HWIO -> torch's IOHW, flipped in space: flax's
   transposed conv correlates the dilated input with the kernel as it is,
   torch's with the kernel flipped;
+* ``Dense`` kernel [in, out] -> ``nn.Linear`` weight [out, in], bias
+  copied; an ``nn.LazyLinear`` is materialized at the kernel's shape;
 * BatchNorm ``scale/bias`` -> ``weight/bias`` and ``batch_stats``
-  ``mean/var`` -> ``running_mean/running_var``; GroupNorm ``scale/bias``;
-  PReLU ``alpha`` -> ``weight``.
+  ``mean/var`` -> ``running_mean/running_var`` (``BatchNorm2d``, and
+  ``BatchNorm1d`` for flax's BatchNorm on ``[B, F]``); GroupNorm
+  ``scale/bias``; PReLU ``alpha`` -> ``weight``;
+* a module's own parameters (``nn.Parameter`` attributes, e.g. BiFPN's
+  ``w1``/``w2``, GeM's ``p``, the pools' ``weights``) are flax params of
+  the same name and shape.
 
 Flax names a submodule by its class and creation order (``Conv_0``,
 ``BatchNorm_1``, ``UnetResidualBlock_2``), one counter per class, unless
@@ -20,14 +26,16 @@ the module names it.  The port's modules register their children in the
 order flax creates them, so by default a module's children, with
 ``nn.Sequential`` and ``nn.ModuleList`` flattened, are named that way:
 ``Conv2d`` is ``Conv``, ``ConvTranspose2d`` ``ConvTranspose``,
-``BatchNorm2d`` ``BatchNorm``, any other module its class name.  A
-``UnetResidualBlock`` with a shortcut conv has it as ``Conv_0``, created
+``BatchNorm1d``/``2d`` ``BatchNorm``, ``Linear`` ``Dense``, any other module
+its class name.  A ``UnetResidualBlock`` with a shortcut conv has it as ``Conv_0``, created
 before its 3x3 convs; the UNet decoder's upsample layers and blocks are
 numbered coarsest stage first.  The exceptions are named here: the
 composite models' and ``GenericEncoder``'s attributes, the SENet's own
 names (``layer0_conv1``, ``layer{s}_{i}/conv1``, ``.../se/se_fc1``) and the
 FPN decoder's ``Conv_0..Conv_{L-1}`` (the laterals fine -> coarse, then one
 prediction conv per fused level, the second-coarsest first).
+``FullyConnectedClassificationHead`` flattens NCHW in (c, h, w) order where
+flax flattens NHWC in (h, w, c) order, so its kernel's rows are reordered.
 
 :func:`flax_name_map` gives the reverse map, torch name -> flax path, which
 the parity tests use to compare gradients, param groups and running
@@ -43,6 +51,7 @@ from torch import nn
 from .decoders.fpn import FPNDecoder
 from .encoders.common import GenericEncoder
 from .encoders.senet import SENetBottleneck, SENetEncoder, SEModule
+from .heads.classification import FullyConnectedClassificationHead
 from .models import EncoderDecoderModel, UNetSegmentationModel
 
 __all__ = ["flax_name_map", "load_flax_variables"]
@@ -51,7 +60,7 @@ _Leaf = Tuple[str, Tuple[str, ...], torch.Tensor, Callable[[np.ndarray], np.ndar
 
 # flax's class name of the torch modules whose flax counterpart is a flax layer
 _FLAX_CLASS = ((nn.Conv2d, "Conv"), (nn.ConvTranspose2d, "ConvTranspose"), (nn.BatchNorm2d, "BatchNorm"),
-               (nn.GroupNorm, "GroupNorm"))
+               (nn.BatchNorm1d, "BatchNorm"), (nn.GroupNorm, "GroupNorm"), (nn.Linear, "Dense"))
 
 
 def _same(a: np.ndarray) -> np.ndarray:
@@ -64,6 +73,21 @@ def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
 
 def _flax_transpose_kernel(a: np.ndarray) -> np.ndarray:
     return a[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def _dense_kernel(a: np.ndarray) -> np.ndarray:
+    return a.T
+
+
+def _nhwc_flat_dense_kernel(channels: int) -> Callable[[np.ndarray], np.ndarray]:
+    """A Dense kernel over NHWC-flattened [h, w, c] rows -> a Linear weight
+    over NCHW-flattened (c, h, w) columns."""
+
+    def reorder(a: np.ndarray) -> np.ndarray:
+        k = a.shape[-1]
+        return a.reshape(-1, channels, k).transpose(1, 0, 2).reshape(-1, k).T
+
+    return reorder
 
 
 def _flax_class(module: nn.Module) -> str:
@@ -116,22 +140,34 @@ def _children(module: nn.Module):
 
 
 def _leaves(module: nn.Module, path: Tuple[str, ...]) -> Iterator[_Leaf]:
+    if isinstance(module, FullyConnectedClassificationHead):
+        fc = path + ("Dense_0",)
+        yield "params", fc + ("kernel",), module.fc.weight, _nhwc_flat_dense_kernel(module.in_channels)
+        yield "params", fc + ("bias",), module.fc.bias, _same
+        return
+    if isinstance(module, nn.Linear):
+        yield "params", path + ("kernel",), module.weight, _dense_kernel
+        if module.bias is not None:
+            yield "params", path + ("bias",), module.bias, _same
+        return
     if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
         kernel = _flax_transpose_kernel if isinstance(module, nn.ConvTranspose2d) else _hwio_to_oihw
         yield "params", path + ("kernel",), module.weight, kernel
         if module.bias is not None:
             yield "params", path + ("bias",), module.bias, _same
         return
-    if isinstance(module, (nn.BatchNorm2d, nn.GroupNorm)):
+    if isinstance(module, (nn.BatchNorm1d, nn.BatchNorm2d, nn.GroupNorm)):
         yield "params", path + ("scale",), module.weight, _same
         yield "params", path + ("bias",), module.bias, _same
-        if isinstance(module, nn.BatchNorm2d):
+        if not isinstance(module, nn.GroupNorm):
             yield "batch_stats", path + ("mean",), module.running_mean, _same
             yield "batch_stats", path + ("var",), module.running_var, _same
         return
     if isinstance(module, nn.PReLU):
         yield "params", path + ("alpha",), module.weight, _same
         return
+    for name, param in module.named_parameters(recurse=False):
+        yield "params", path + (name,), param, _same
     for name, child in _children(module):
         yield from _leaves(child, path + (name,))
 
@@ -160,6 +196,8 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
             if key not in flat:
                 raise KeyError(f"flax variables lack {'/'.join(key)}")
             value = transform(flat[key].astype(np.float32))
+            if isinstance(tensor, nn.parameter.UninitializedParameter):
+                tensor.materialize(value.shape)
             if tuple(value.shape) != tuple(tensor.shape):
                 raise ValueError(f"{'/'.join(key)}: shape {value.shape} does not fit {tuple(tensor.shape)}")
             tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))

@@ -1039,3 +1039,91 @@ def test_make_mesh_and_prefetch_default_to_the_card(dev):
     (x,) = next(prefetch_to_device([(np.arange(12, dtype=np.float32).reshape(4, 3),)], sharding=batch_sharding(mesh)))
     assert x.device == torch.device("cuda", torch.cuda.current_device())
     assert torch.equal(x.cpu(), torch.arange(12.0).reshape(4, 3))
+
+
+# ---------------------------------------------------------------------------
+# The decoders, heads and pools: on the card, against the same module on the CPU
+# ---------------------------------------------------------------------------
+
+def _decoder_and_head_cases():
+    from pytorch_toolbelt_tpu_torch import nn as tnn
+    from pytorch_toolbelt_tpu_torch import zoo
+    from pytorch_toolbelt_tpu_torch.core import FeatureMapsSpec
+
+    spec = FeatureMapsSpec((8, 12, 16, 24), (4, 8, 16, 32))
+    return {
+        "deeplab_v3": lambda: zoo.DeeplabV3Decoder(spec, 5, aspp_channels=16, atrous_rates=(2, 4, 6), dropout=0.0),
+        "deeplab_v3_plus": lambda: zoo.DeeplabV3PlusDecoder(spec, 16, aspp_channels=16, low_level_channels=8,
+                                                            atrous_rates=(2, 4, 6), dropout=0.0),
+        "ppm": lambda: zoo.PPMDecoder(spec, out_channels=16, dropout=0.0),
+        "can": lambda: zoo.CANDecoder(spec, out_channels=8),
+        "bifpn": lambda: zoo.BiFPNDecoder(spec, out_channels=16, num_layers=2),
+        "bifpn_separable": lambda: zoo.BiFPNDecoder(spec, out_channels=16, num_layers=1, separable=True),
+        "generic_head": lambda: zoo.GenericPoolingClassificationHead(spec, 5, pool_fn=lambda x: x.amax(dim=(2, 3))),
+        "avg_head": lambda: zoo.GlobalAveragePoolingClassificationHead(spec, 5),
+        "max_head": lambda: zoo.GlobalMaxPoolingClassificationHead(spec, 5),
+        "gem_head": lambda: zoo.GeneralizedMeanPoolingClassificationHead(spec, 5),
+        "fc_head": lambda: zoo.FullyConnectedClassificationHead(spec, 5),
+        "max_avg_head": lambda: zoo.GlobalMaxAvgPoolingClassificationHead(spec, 5),
+        "max_avg_sum_head": lambda: zoo.GlobalMaxAvgSumPoolingClassificationHead(spec, 5),
+        "hypercolumn": lambda: zoo.HypercolumnHead(spec, 3, mid_channels=16),
+        "deep_supervision": lambda: zoo.DeepSupervisionHead(spec, 3, output_name_prefix="mask"),
+        "progressive_shuffle": lambda: zoo.ProgressiveShuffleHead(spec, 3),
+        "segformer": lambda: zoo.SegFormerHead(spec, 3, embedding_dim=16, with_supervision=True),
+        "resize": lambda: zoo.ResizeHead(spec, 3),
+        "fpn_context": lambda: _OnCoarsest(tnn.FPNContextBlock(8, 16), index=0),
+        "fpn_bottleneck": lambda: _OnCoarsest(tnn.FPNBottleneckBlock(24, 16)),
+        "kmax_pool": lambda: _OnCoarsest(tnn.GlobalKMaxPool2d(k=3)),
+        "kmax_pool_fixed": lambda: _OnCoarsest(tnn.GlobalKMaxPool2d(k=3, trainable=False)),
+        "gwap": lambda: _OnCoarsest(tnn.GWAP(24)),
+        "rms_pool": lambda: _OnCoarsest(tnn.RMSPool()),
+        "mil_pool": lambda: _OnCoarsest(tnn.MILCustomPoolingModule(24, 4)),
+        "rank_pool": lambda: _OnCoarsest(tnn.GlobalRankPooling(24, 4)),
+        "gem_pool": lambda: _OnCoarsest(tnn.GeneralizedMeanPooling2d(l2_normalize=True)),
+        "max_avg_pool": lambda: _OnCoarsest(tnn.GlobalMaxAvgPooling2d()),
+    }
+
+
+_DECODERS = ("deeplab_v3", "deeplab_v3_plus", "ppm", "can", "bifpn", "bifpn_separable")
+
+
+class _OnCoarsest(torch.nn.Module):
+    """A block or pool applied to one of the feature maps, the coarsest by default."""
+
+    def __init__(self, block, index=-1):
+        super().__init__()
+        self.block = block
+        self.index = index
+
+    def forward(self, feature_maps, output_size=None):
+        return self.block(feature_maps[self.index])
+
+
+def _same_on_card(got, ref):
+    if isinstance(ref, dict):
+        assert set(got) == set(ref)
+        return all(_same_on_card(got[k], ref[k]) for k in ref)
+    if isinstance(ref, (list, tuple)):
+        assert type(got) is type(ref) and len(got) == len(ref)
+        return all(_same_on_card(g, r) for g, r in zip(got, ref))
+    assert got.is_cuda and got.shape == ref.shape and got.dtype == ref.dtype
+    return float((got.cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("name", list(_decoder_and_head_cases()))
+def test_decoder_or_head_on_cuda_matches_cpu(dev, name):
+    """Each new decoder, head, pool and FPN block at a small size: on the
+    card it returns tensors on the card that agree with the same module on
+    the CPU in fp32 with TF32 off (1e-4 * max|ref|); a tensor made on the
+    CPU inside a forward would fail the call."""
+    torch.manual_seed(0)
+    module = _decoder_and_head_cases()[name]()
+    gen = torch.Generator().manual_seed(1)
+    maps = [torch.randn(2, c, 64 // s, 64 // s, generator=gen) for c, s in zip((8, 12, 16, 24), (4, 8, 16, 32))]
+    if name in ("gem_head", "gem_pool"):
+        maps = [m.abs() for m in maps]
+    kwargs = {} if name in _DECODERS else {"output_size": (64, 64)}
+    with torch.no_grad():
+        ref = module.eval()(maps, **kwargs)
+        got = module.to(dev)([m.to(dev) for m in maps], **kwargs)
+    assert _same_on_card(got, ref)
