@@ -13,9 +13,9 @@ config-4 loss suite, streaming tiled inference of SEResNeXt50-FPN through
 ResNet34-UNet through tiled d4 inference, pad -> d2 TTA -> unpad on one
 image, config 5's strip-sharded tiled inference under an nccl process
 group, an ensemble and 3D tiles, config 2 in int8 and the int8
-SEResNeXt50-FPN, training config 3's model at config 4's shape, and
-DeepLabV3+ on a ResNet-50 through tiled d4 inference -- and holds each
-against an independent plain path.  Weights and
+SEResNeXt50-FPN, training config 3's model at config 4's shape,
+DeepLabV3+ on a ResNet-50 and SegFormer-B2 through tiled d4 inference -- and
+holds each against an independent plain path.  Weights and
 data are random, made from a seed.
 
 Phases, each printed on its own line:
@@ -166,6 +166,22 @@ Phases, each printed on its own line:
      device time by kind (cuDNN convs, depthwise convs, BatchNorm, upsample,
      cat, K1, elementwise passes) and the top kernels; the ASPP alone (its
      dilated and depthwise convs, at the run's coarse map) per run; the
+     phase's own seconds;
+ 19. SegFormer-B2 (``mit_b2_encoder()``, no decoder, ``SegFormerHead`` at
+     embedding 768, 19 classes: NVlabs SegFormer's Cityscapes B2 setting;
+     eager, bf16, channels_last; seeded weights, ``Linear`` weights
+     LeCun-normal) through ``tiled_apply_d4_tta``: at 2048^2 in both modes
+     against the plain path on the fp32 model (TF32 off), every K1 launch on
+     the cell route; K1 alone at the 5000^2 K = 19 shape; one 5000^2
+     distributed run at batch 64 after a warm-up run for its wall time, MP/s,
+     peak memory and K1's route; under ``torch.profiler`` the idle share and
+     device time by kind (kernel names first, then the labelled module whose
+     range holds the kernel on the card's timeline: GEMMs / 1x1 convs,
+     attention matmuls and softmax, sr convs, depthwise 3x3, patch
+     embeddings) and the top kernels; then Swin-T,
+     EfficientNet-B4, EfficientNetV2-S, MixNet-M, MobileNetV2 and
+     MobileNetV3-large at their published widths, one [8, 3, 512, 512] bf16
+     forward each against fp32 (5e-2 * max|ref| per map) and its ms; the
      phase's own seconds.
 
 Device times are medians over five windows of CUDA events; each phase
@@ -270,7 +286,9 @@ TRAIN_KINDS = (("K4", r"radix_"), ("BatchNorm", r"[Bb]atch_?[Nn]orm|bn_fw|bn_bw|
 # projection 48, rates (12, 24, 36), decoder out 256); the timed run and the bf16 check against the fp32 plain path
 DEEPLAB_DECODER = dict(out_channels=256, aspp_channels=256, low_level_channels=48, atrous_rates=(12, 24, 36))
 DEEPLAB_SIZE, DEEPLAB_CHECK_SIZE = 5000, 2048
-# (kind, pattern of the kernel names) for phase 12's device time; the first match counts
+# (kind, pattern of the kernel names) for phase 12's device time; the first match counts, and a kernel that
+# matches none (nor a labelled range, see _log_profile_by_kind) is OTHER_KIND
+OTHER_KIND = "everything else"
 DEVICE_KINDS = (("K1", r"grid_merge"), ("cuDNN convs", r"xmma|cutlass|cudnn|fprop|dgrad|convolve"),
                 ("BatchNorm", r"batch_norm"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"))
 # and for phase 18's: the separable ASPP's dilated depthwise convs (cuDNN's grouped direct kernel) apart from the rest
@@ -278,6 +296,24 @@ DEEPLAB_KINDS = (("K1", r"grid_merge"), ("ASPP dilated depthwise convs", r"[Dd]e
                  ("cuDNN convs", r"xmma|cutlass|cudnn|fprop|dgrad|convolve|conv2d|gemm"),
                  ("BatchNorm", r"batch_norm|bn_fw"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"),
                  ("ReLU (clamp)", r"clamp"), ("residual add", r"CUDAFunctor_add"), ("max pooling", r"max_pool"))
+# Phase 19: SegFormer-B2, NVlabs SegFormer's Cityscapes setting (local_configs/segformer/B2/
+# segformer.b2.1024x1024.city.160k.py): MiT-B2 + the MLP decode head at embed_dim 768, 19 classes
+SEGFORMER_EMBED = 768
+SEGFORMER_SIZE, SEGFORMER_CHECK_SIZE = 5000, 2048
+# phase 19's device time: kinds told by kernel name first, then by the labelled module whose range holds the kernel
+SEGFORMER_KINDS = (("K1", r"grid_merge"), ("LayerNorm", r"layer_norm"), ("GELU", r"gelu|Gelu"),
+                   ("attention matmuls and softmax", r"softmax"), ("bilinear upsample", r"upsample"),
+                   ("cat", r"CatArray"), ("BatchNorm", r"batch_norm|bn_fw"))
+# and the encoders phase 19 runs at their published widths on one [8, 3, 512, 512] batch: timed in
+# ENCODER_WINDOWS windows of ENCODER_REPS forwards after ENCODER_WARMUP, the host's launch time taken over
+# ENCODER_HOST_FORWARDS single forwards, the card's busy time over ENCODER_PROFILED profiled forwards
+ENCODER_BATCH = 8
+ENCODER_WARMUP, ENCODER_REPS, ENCODER_WINDOWS = 3, 10, 5
+ENCODER_HOST_FORWARDS, ENCODER_PROFILED = 5, 5
+HOST_BOUND_IDLE = 0.2  # the card's idle share of a forward's event time from which the host is named its bound
+PROJECTION_BN_SCALE = 0.5  # see _scale_block_outputs
+ENCODERS_19 = ("swin_tiny_encoder", "efficientnet_b4_encoder", "efficientnet_v2_s_encoder", "mixnet_m_encoder",
+               "MobileNetV2Encoder", "mobilenet_v3_large_encoder")
 # and for phase 14's (the fused UNet-32 of config 5)
 CONFIG5_KINDS = (("K1", r"grid_merge"), ("K2", r"conv3x3"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"),
                  ("max pooling", r"max_pool"))
@@ -786,8 +822,9 @@ def phase_full_size(fused, dev, smi):
         _check_merge_routes(f"[6] 5000^2 {mode}", 1)
         del out
 
-    wall_ms, busy, by_name = _profiled(lambda: tiled_apply_d4_tta(fused, image, TILE, STEP, weight="pyramid",
-                                                                  batch_size=DIST_BATCH, mode="distributed"))
+    wall_ms, prof = _profiled(lambda: tiled_apply_d4_tta(fused, image, TILE, STEP, weight="pyramid",
+                                                         batch_size=DIST_BATCH, mode="distributed"))
+    busy, by_name = _device_busy_ms(prof), _device_ms_by_name(prof)
     if busy == 0:
         log("[6] profiled 5000^2 distributed run: device time not measured (the profiler saw no CUDA events)")
         return
@@ -1356,38 +1393,82 @@ def _device_ms_by_name(prof) -> dict:
     return by_name
 
 
-def _log_profile_by_kind(what: str, fn, kinds, smi, top: int) -> None:
-    """Run ``fn`` once under torch.profiler; log its idle share, device time
-    by (kind, pattern of the kernel names) of ``kinds`` (the first match
-    counts; the rest are "other elementwise and copies") and its ``top``
+def _log_profile_by_kind(what: str, fn, kinds, smi, top: int, labels=None) -> None:
+    """Run ``fn`` once under torch.profiler (with ``labels``' ranges, see
+    ``_profiled``); log its idle share and device time by kind: the first of
+    ``kinds``, (kind, pattern of the kernel names), whose pattern the
+    kernel's name matches, else the kind of the innermost labelled range
+    that holds the kernel on the card's timeline (the profiler's spans of
+    the ``record_function`` ranges there), else OTHER_KIND; then its ``top``
     kernels."""
-    wall_ms, busy, by_name = _profiled(fn)
-    if busy == 0:
+    from torch.autograd import DeviceType
+
+    wall_ms, prof = _profiled(fn, labels)
+    events = _device_events(prof)
+    if not events:
         log(f"{what}: device time not measured (the profiler saw no CUDA events)")
         return
-    totals = {}
-    for name, ms in by_name.items():
-        kind = next((k for k, pattern in kinds if re.search(pattern, name)), "other elementwise and copies")
-        totals[kind] = totals.get(kind, 0.0) + ms
+    busy, names = _busy_ms(events), set((labels or {}).values())
+    # ranges by start, the outer of two that start together first, so that the innermost is on top of the stack
+    ranges = sorted((e.time_range.start, -e.time_range.end, e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and getattr(e, "is_user_annotation", False)
+                    and e.name in names)
+    totals, stack, i = {}, [], 0
+    for start, end, name, _ in events:
+        while i < len(ranges) and ranges[i][0] <= start:
+            r_start, r_end, r_name = ranges[i][0], -ranges[i][1], ranges[i][2]
+            while stack and stack[-1][0] <= r_start:
+                stack.pop()
+            stack.append((r_end, r_name))
+            i += 1
+        while stack and stack[-1][0] <= start:
+            stack.pop()
+        kind = next((k for k, pattern in kinds if re.search(pattern, name)), None)
+        kind = kind or (stack[-1][1] if stack else OTHER_KIND)
+        totals[kind] = totals.get(kind, 0.0) + (end - start) / 1e3
     by_kind = sorted(totals.items(), key=lambda kv: -kv[1])
     log(f"{what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms (idle {1 - busy / wall_ms:.1%}); device time by "
-        "kind: " + ", ".join(f"{k} {ms:.2f} ms ({ms / busy:.1%})" for k, ms in by_kind) + f" ({smi})")
+        f"kind ({sum(totals.values()):.1f} ms of kernels and copies, {len(ranges)} labelled ranges): "
+        + ", ".join(f"{k} {ms:.2f} ms ({ms / busy:.1%})" for k, ms in by_kind) + f" ({smi})")
     label = what.split()[0]
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+    for name, ms in sorted(_device_ms_by_name(prof).items(), key=lambda kv: -kv[1])[:top]:
         log(f"{label}   device {ms:8.2f} ms  {name[:100]}")
 
 
-def _profiled(fn):
-    """Run ``fn`` once under ``torch.profiler``: (wall ms to a synchronize,
-    device busy ms, device ms by kernel name)."""
+@contextlib.contextmanager
+def _labelled(labels: dict):
+    """Mark each call of each module of ``labels`` as a ``record_function``
+    range named by its kind, for the profiler to attribute kernels to."""
+    from torch.autograd.profiler import record_function
+
+    open_ranges, handles = {}, []
+    for module, label in labels.items():
+        def pre(m, args, label=label):
+            open_ranges.setdefault(id(m), []).append(record_function(label).__enter__())
+
+        def post(m, args, out):
+            open_ranges[id(m)].pop().__exit__(None, None, None)
+
+        handles += [module.register_forward_pre_hook(pre), module.register_forward_hook(post)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def _profiled(fn, labels=None):
+    """Run ``fn`` once under ``torch.profiler``, each call of each module of
+    ``labels`` ({module: kind}) marked as a range (``_labelled``): (wall ms
+    to a synchronize, the profile)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _labelled(labels or {}), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return wall_ms, _device_busy_ms(prof), _device_ms_by_name(prof)
+    return wall_ms, prof
 
 
 def phase_streaming(dev, smi, model, model_bf16):
@@ -1447,7 +1528,8 @@ def phase_streaming(dev, smi, model, model_bf16):
     peak = torch.cuda.max_memory_allocated() / 2**30
     del out
 
-    prof_wall_ms, busy, by_name = _profiled(lambda: stream_tiled(forward, image, slicer, dev))
+    prof_wall_ms, prof = _profiled(lambda: stream_tiled(forward, image, slicer, dev))
+    busy, by_name = _device_busy_ms(prof), _device_ms_by_name(prof)
     k3_ms = sum(ms for name, ms in by_name.items() if "scatter_merge" in name)
     profile_line = "device time not measured (the profiler saw no CUDA events)"
     if busy > 0:
@@ -2549,14 +2631,8 @@ def _log_training_profile(fn, smi) -> None:
     """Run TRAIN_PROFILED_STEPS steps (``fn``) under torch.profiler; log per step the idle share, the device time
     by kind (each kind's kernel time summed, and the time the card ran any of its kernels: the card runs kernels
     of several streams at once, so the sums may add up to more than the busy time), the top kernels and K4's."""
-    from torch.profiler import ProfilerActivity, profile
-
     n = TRAIN_PROFILED_STEPS
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, prof = _profiled(fn)
     events = _device_events(prof)
     if not events:
         log("[17] profiled steps: device time not measured (the profiler saw no CUDA events)")
@@ -2564,7 +2640,7 @@ def _log_training_profile(fn, smi) -> None:
     busy = _busy_ms(events)
     kinds, by_name = {}, {}
     for a, b, name, stream in events:
-        kind = next((k for k, pattern in TRAIN_KINDS if re.search(pattern, name)), "other elementwise and copies")
+        kind = next((k for k, pattern in TRAIN_KINDS if re.search(pattern, name)), OTHER_KIND)
         kinds.setdefault(kind, []).append((a, b))
         entry = by_name.setdefault(name, [0.0, set()])
         entry[0] += (b - a) / 1e3
@@ -2844,6 +2920,220 @@ def phase_deeplab(dev, smi):
     return launches
 
 
+def seed_linear_weights(model, seed: int):
+    """``seed_weights`` for a model with ``nn.Linear`` layers: convs, norms
+    and biases as there, then every Linear weight LeCun-normal (std
+    fan_in^-1/2), so that attention logits and the residual stream stay of
+    order one."""
+    seed_weights(model, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * m.weight.shape[1] ** -0.5)
+    return model
+
+
+def segformer_b2(dev):
+    """SegFormer-B2 at its published width: ``mit_b2_encoder()``, no decoder
+    (``Identity``), ``SegFormerHead(spec, 19, embedding_dim=768)``; seeded
+    weights (``seed_linear_weights``).  Returns the fp32 and the bf16 model,
+    both channels_last."""
+    import copy
+
+    from pytorch_toolbelt_tpu_torch.nn import Identity
+    from pytorch_toolbelt_tpu_torch.zoo import EncoderDecoderModel, SegFormerHead, mit_b2_encoder
+
+    encoder = mit_b2_encoder()
+    head = SegFormerHead(encoder.get_output_spec(), CLASSES, embedding_dim=SEGFORMER_EMBED)
+    model = seed_linear_weights(EncoderDecoderModel(encoder, Identity(), head), SEED + 19)
+    model = model.eval().to(dev, memory_format=torch.channels_last)
+    return model, copy.deepcopy(model).to(torch.bfloat16)
+
+
+def _segformer_labels(model) -> dict:
+    """{module: kind} of the modules whose GEMM and conv kernels phase 19's
+    profile tells apart: the projections, the attention (its matmuls and
+    softmax, outside its child modules), the spatial-reduction convs, the
+    depthwise 3x3 convs and the patch embeddings."""
+    from pytorch_toolbelt_tpu_torch.zoo import EfficientSelfAttention, MixFFN, OverlapPatchEmbed
+
+    gemm = "GEMMs / 1x1 convs"
+    labels = {}
+    for m in model.modules():
+        if isinstance(m, EfficientSelfAttention):
+            labels[m] = "attention matmuls and softmax"
+            labels.update({lin: gemm for lin in (m.q, m.k, m.v, m.proj)})
+            if m.sr is not None:
+                labels[m.sr] = "sr convs"
+        elif isinstance(m, MixFFN):
+            labels.update({m.fc1: gemm, m.fc2: gemm, m.dwconv: "depthwise 3x3"})
+        elif isinstance(m, OverlapPatchEmbed):
+            labels[m.proj] = "patch-embedding convs"
+    head = model.head
+    labels.update({conv: gemm for conv in (*head.project, head.fuse_conv, head.final)})
+    return labels
+
+
+def _scale_block_outputs(model):
+    """As config3_model does for its residual branches: the last BatchNorm
+    of every MBConv, FusedMBConv, MixBlock and InvertedResidual gets its
+    scale cut, by RESIDUAL_BN_SCALE where the block adds its input and by
+    PROJECTION_BN_SCALE where it does not, so that the activations of a deep
+    seeded encoder stay of order one (without, EfficientNetV2-S's grow to
+    ~1e5, and MobileNetV2's bf16 error reaches ~5.5% of max on the CPU)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "use_residual"):
+                if hasattr(m, "project_bn"):
+                    last = m.project_bn
+                else:  # FusedMBConv: the projection's BN, or the one BN at expand ratio 1
+                    last = m.bn if m.project is None else m.project[-1]
+                last.weight.mul_(RESIDUAL_BN_SCALE if m.use_residual else PROJECTION_BN_SCALE)
+    return model
+
+
+def _forward_times(fn) -> tuple:
+    """Times of one call of ``fn``, a forward of a few hundred kernels: (its
+    device time between CUDA events, a Timing over ENCODER_WINDOWS windows of
+    ENCODER_REPS calls; the host's median ms to launch one call, from a
+    synchronized card, with no wait for the card; the card's busy ms per
+    call under torch.profiler).  Where the card idles for HOST_BOUND_IDLE or
+    more of the event time, the call is bound by the host's launch rate."""
+    events = cuda_ms(fn, reps=ENCODER_REPS, warmup=ENCODER_WARMUP, windows=ENCODER_WINDOWS)
+    launch = []
+    for _ in range(ENCODER_HOST_FORWARDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        launch.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    _, prof = _profiled(lambda: [fn() for _ in range(ENCODER_PROFILED)])
+    return events, statistics.median(launch), _device_busy_ms(prof) / ENCODER_PROFILED
+
+
+@torch.no_grad()
+def _encoders_at_width(dev, smi) -> None:
+    """Each of ENCODERS_19 at its published width (seeded weights, block
+    outputs scaled by ``_scale_block_outputs``): one [8, 3, 512, 512]
+    bf16 forward against the fp32 forward (5e-2 * max|ref| on every feature
+    map); then the bf16 forward's device time, the host's time to launch it
+    and the card's busy share (``_forward_times``)."""
+    import copy
+
+    from pytorch_toolbelt_tpu_torch import zoo
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 191)
+    x = torch.rand(ENCODER_BATCH, 3, TILE, TILE, device=dev, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    for i, name in enumerate(ENCODERS_19):
+        model = _scale_block_outputs(seed_linear_weights(getattr(zoo, name)(), SEED + 192 + i)).eval()
+        model = model.to(dev, memory_format=torch.channels_last)
+        refs = model(x)
+        model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+        del model
+        xb = x.to(torch.bfloat16)
+        outs = model_bf16(xb)
+        errs = []
+        for got, ref in zip(outs, refs):
+            err, tol = float((got.float() - ref).abs().max()), PATH_TOL * float(ref.abs().max())
+            if got.shape != ref.shape or not bool(torch.isfinite(got).all()) or not err <= tol:
+                raise AssertionError(f"{name}: a bf16 feature map {tuple(got.shape)} disagrees with fp32: "
+                                     f"{err:.3e} > {tol:.3e}")
+            errs.append(f"{err / float(ref.abs().max()):.2e}")
+        ms, launch_ms, busy_ms = _forward_times(lambda: model_bf16(xb))
+        log(f"[19] {name} [{ENCODER_BATCH}, 3, {TILE}, {TILE}] bf16 vs fp32 (TF32 off): max|err| / max|ref| per map "
+            f"{', '.join(errs)} <= {PATH_TOL:.0e} ok; maps {[tuple(o.shape[1:]) for o in outs]}; per forward: {ms} "
+            f"between CUDA events ({ENCODER_WINDOWS} windows of {ENCODER_REPS}), host {launch_ms:.3f} ms to launch "
+            f"it ({launch_ms / ms:.0%} of the event time), device busy {busy_ms:.3f} ms under torch.profiler (idle "
+            f"{1 - busy_ms / ms:.1%} of the event time; bound by the "
+            f"{'host' if 1 - busy_ms / ms >= HOST_BOUND_IDLE else 'card'}) ({smi})")
+        del model_bf16, outs, refs
+        torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def phase_segformer(dev, smi):
+    """SegFormer-B2 through tiled d4 inference: at 2048^2 in both modes
+    against the plain path on the fp32 model; K1 alone at the 5000^2 K = 19
+    shape; one 5000^2 distributed run for its wall time, peak memory and
+    K1's route; under torch.profiler the idle share, device time by kind and
+    top kernels; then the other transformer and mobile encoders at their
+    published widths.  Returns K1's launches and launches by route in the
+    main path's runs."""
+    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, tiled_apply_d4_tta
+    from pytorch_toolbelt_tpu_torch.ops import grid_merge
+
+    t0 = time.perf_counter()
+    model, model_bf16 = segformer_b2(dev)
+    forward = image_forward(model_bf16, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    check = torch.rand(3, SEGFORMER_CHECK_SIZE, SEGFORMER_CHECK_SIZE, device=dev, generator=gen)
+    runs = (("distributed", DIST_BATCH), ("full", FULL_BATCH))
+    torch.cuda.synchronize()
+    _reset_merge_counts()
+    outs = {mode: tiled_apply_d4_tta(forward, check, TILE, STEP, weight="pyramid", batch_size=batch, mode=mode)
+            for mode, batch in runs}
+    torch.cuda.synchronize()
+    launches = {"grid_merge": grid_merge.launches, "grid_merge_by_route": dict(grid_merge.launches_by_route)}
+    log(f"[19] SegFormer-B2 main path launches at {SEGFORMER_CHECK_SIZE}^2: {launches}")
+    _check_merge_routes(f"[19] {SEGFORMER_CHECK_SIZE}^2 runs", len(runs))
+    for mode, batch in runs:
+        got = outs.pop(mode).float()
+        ref = plain_tiled_d4(model, check, mode)
+        err, tol = float((got - ref).abs().max()), PATH_TOL * float(ref.abs().max())
+        ok = (got.shape == (CLASSES, SEGFORMER_CHECK_SIZE, SEGFORMER_CHECK_SIZE) and bool(torch.isfinite(got).all())
+              and err <= tol)
+        log(f"[19] SegFormer-B2 tiled_apply_d4_tta {SEGFORMER_CHECK_SIZE}^2 mode={mode} batch={batch}, bf16 vs the "
+            f"plain path on the fp32 model (TF32 off): max|err| {err:.3e} <= {tol:.3e} (5e-2 * max|ref| "
+            f"{float(ref.abs().max()):.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the SegFormer-B2 tiled d4 path mode={mode} disagrees with the plain path")
+        del got, ref
+    del model
+
+    slicer = ImageSlicer((SEGFORMER_SIZE, SEGFORMER_SIZE), TILE, STEP, weight="pyramid")
+    ty, tx = ((t - TILE) // STEP + 1 for t in slicer.target_shape)
+    stack = torch.randn(ty * tx, CLASSES, TILE, TILE, device=dev, generator=gen)
+    weight = torch.as_tensor(slicer.weight.astype(np.float32), device=dev)
+    _k1_at(stack, weight, (ty, tx, STEP, STEP), (SEGFORMER_SIZE, SEGFORMER_SIZE),
+           (slicer.margin_top, slicer.margin_left), smi, phase="[19]")
+    del stack
+    torch.cuda.empty_cache()
+
+    image = torch.rand(3, SEGFORMER_SIZE, SEGFORMER_SIZE, device=dev, generator=gen)
+    run = lambda: tiled_apply_d4_tta(forward, image, TILE, STEP, weight="pyramid", batch_size=DIST_BATCH,  # noqa: E731
+                                     mode="distributed")
+    run()  # warm-up: cuDNN and cuBLAS pick their algorithms for these shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_merge_counts()
+    t1 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if out.shape != (CLASSES, SEGFORMER_SIZE, SEGFORMER_SIZE) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"the SegFormer-B2 {SEGFORMER_SIZE}^2 run gave a wrong shape or non-finite values")
+    del out
+    by_route = dict(grid_merge.launches_by_route)
+    log(f"[19] SegFormer-B2 tiled_apply_d4_tta {SEGFORMER_SIZE}^2 distributed batch={DIST_BATCH} bf16: {wall:.3f} s, "
+        f"{SEGFORMER_SIZE**2 / 1e6 / wall:.2f} MP/s, peak {peak:.2f} GiB allocated; K1 launches by route {by_route} "
+        f"at K = {CLASSES} ({smi})")
+    _check_merge_routes(f"[19] {SEGFORMER_SIZE}^2 distributed", 1)
+    launches["grid_merge"] += grid_merge.launches
+    for route, n in by_route.items():
+        launches["grid_merge_by_route"][route] += n
+
+    _log_profile_by_kind(f"[19] profiled {SEGFORMER_SIZE}^2 distributed run", run, SEGFORMER_KINDS, smi, top=12,
+                         labels=_segformer_labels(model_bf16))
+    del model_bf16, image
+    torch.cuda.empty_cache()
+    _encoders_at_width(dev, smi)
+    log(f"[19] phase 19: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2906,6 +3196,11 @@ def main() -> int:
     deeplab = phase_deeplab(dev, smi)
     launches["grid_merge"] += deeplab["grid_merge"]
     for route, n in deeplab["grid_merge_by_route"].items():
+        launches["grid_merge_by_route"][route] += n
+    torch.cuda.empty_cache()
+    segformer = phase_segformer(dev, smi)
+    launches["grid_merge"] += segformer["grid_merge"]
+    for route, n in segformer["grid_merge_by_route"].items():
         launches["grid_merge_by_route"][route] += n
 
     kernels = [

@@ -1,5 +1,7 @@
 from .activations import *  # noqa: F401,F403
+from .coord_conv import AddCoords, CoordConv, append_coords
 from .drop_path import DropPath, drop_path
+from .dropblock import DropBlock2D, DropBlock3D, DropBlockScheduled
 from .dsconv import DepthwiseSeparableConv2d, DepthwiseSeparableConv2dBlock
 from .fpn import FPNBottleneckBlock, FPNContextBlock, FPNFuse, FPNFuseSum, HFF
 from .functional import resize_2d, resize_bilinear, resize_nearest
@@ -19,6 +21,13 @@ from .normalization import (
     Normalization,
     instantiate_normalization_block,
 )
+from .ocnet import (
+    ASPObjectContextBlock,
+    ObjectContextBlock,
+    PyramidObjectContextBlock,
+    PyramidSelfAttentionBlock2D,
+    SelfAttentionBlock2D,
+)
 from .pooling import (
     GWAP,
     GeneralizedMeanPooling2d,
@@ -34,6 +43,7 @@ from .pooling import (
 from .scse import ChannelGate2d, ChannelSpatialGate2d, ChannelSpatialGate2dV2, SpatialGate2d, SpatialGate2dV2
 from .simple import Conv2dSame, Identity, conv1x1, conv3x3
 from .spp import ASPP, ASPPModule, ASPPPooling, SeparableASPPModule
+from .srm import SRMLayer
 from .unet import UnetBlock, UnetResidualBlock
 from .upsample import (
     AbstractResizeLayer,

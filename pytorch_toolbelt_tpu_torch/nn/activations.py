@@ -85,8 +85,14 @@ mish = F.mish
 mish_naive = mish
 swish_naive = swish
 hard_sigmoid = F.hardsigmoid  # relu6(x + 3) / 6
-hard_swish = F.hardswish  # x * hard_sigmoid(x)
 relu6 = F.relu6
+
+
+def hard_swish(x: torch.Tensor) -> torch.Tensor:
+    """``x * hard_sigmoid(x)``, rounded as the JAX package rounds it;
+    ``F.hardswish`` rounds ``(x * relu6(x + 3)) / 6``, which differs in the
+    last bit for ~1 input in 5."""
+    return x * hard_sigmoid(x)
 
 
 def identity(x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@ from typing import Any, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...core.interfaces import FeatureMapsSpec
 from ...nn.normalization import BN_MOMENTUM, BatchNorm2d
@@ -33,6 +34,30 @@ def _bn(channels: int) -> BatchNorm2d:
 
 def _take(elements: Sequence[Any], indexes: Sequence[int]) -> List[Any]:
     return [elements[i] for i in indexes]
+
+
+def _remat(block: nn.Module, generator: Optional[torch.Generator], *args) -> Any:
+    """``block(*args)`` with its activations recomputed on the backward pass
+    (``torch.utils.checkpoint``), as flax's ``nn.remat`` does.  The
+    recomputation replays the drop-path masks that the forward drew from
+    ``generator`` (checkpoint itself restores only torch's default
+    generators) and leaves ``generator`` where the forward left it."""
+    if generator is None:
+        return checkpoint(block, *args, use_reentrant=False)
+    start, calls = generator.get_state(), []
+
+    def run(*inputs):
+        if not calls:
+            calls.append(True)
+            return block(*inputs)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(*inputs)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class EncoderBase(nn.Module):

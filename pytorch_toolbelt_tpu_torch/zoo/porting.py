@@ -14,11 +14,13 @@ numpy arrays, so the port needs no jax, and fills the matching torch module:
   copied; an ``nn.LazyLinear`` is materialized at the kernel's shape;
 * BatchNorm ``scale/bias`` -> ``weight/bias`` and ``batch_stats``
   ``mean/var`` -> ``running_mean/running_var`` (``BatchNorm2d``, and
-  ``BatchNorm1d`` for flax's BatchNorm on ``[B, F]``); GroupNorm
-  ``scale/bias``; PReLU ``alpha`` -> ``weight``;
+  ``BatchNorm1d`` for flax's BatchNorm on ``[B, F]``); GroupNorm and
+  LayerNorm ``scale/bias``; PReLU ``alpha`` -> ``weight``;
+* ``DropBlockScheduled``'s ``state`` variable ``step`` -> its ``step`` buffer;
 * a module's own parameters (``nn.Parameter`` attributes, e.g. BiFPN's
   ``w1``/``w2``, GeM's ``p``, the pools' ``weights``) are flax params of
-  the same name and shape.
+  the same name and shape (Swin's ``relative_position_bias``, SRM's
+  ``cfc``).
 
 Flax names a submodule by its class and creation order (``Conv_0``,
 ``BatchNorm_1``, ``UnetResidualBlock_2``), one counter per class, unless
@@ -29,7 +31,9 @@ order flax creates them, so by default a module's children, with
 ``BatchNorm1d``/``2d`` ``BatchNorm``, ``Linear`` ``Dense``, any other module
 its class name.  A ``UnetResidualBlock`` with a shortcut conv has it as ``Conv_0``, created
 before its 3x3 convs; the UNet decoder's upsample layers and blocks are
-numbered coarsest stage first.  The exceptions are named here: the
+numbered coarsest stage first.  MiT and Swin name their blocks by hand
+(``MiTBlock_{i}``, ``SwinBlock_{i}``, counted over all stages), which is
+how the numbering names them.  The exceptions are named here: the
 composite models' and ``GenericEncoder``'s attributes, the SENet's own
 names (``layer0_conv1``, ``layer{s}_{i}/conv1``, ``.../se/se_fc1``) and the
 FPN decoder's ``Conv_0..Conv_{L-1}`` (the laterals fine -> coarse, then one
@@ -48,6 +52,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..nn.dropblock import DropBlockScheduled
 from .decoders.fpn import FPNDecoder
 from .encoders.common import GenericEncoder
 from .encoders.senet import SENetBottleneck, SENetEncoder, SEModule
@@ -156,12 +161,15 @@ def _leaves(module: nn.Module, path: Tuple[str, ...]) -> Iterator[_Leaf]:
         if module.bias is not None:
             yield "params", path + ("bias",), module.bias, _same
         return
-    if isinstance(module, (nn.BatchNorm1d, nn.BatchNorm2d, nn.GroupNorm)):
+    if isinstance(module, (nn.BatchNorm1d, nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
         yield "params", path + ("scale",), module.weight, _same
         yield "params", path + ("bias",), module.bias, _same
-        if not isinstance(module, nn.GroupNorm):
+        if not isinstance(module, (nn.GroupNorm, nn.LayerNorm)):
             yield "batch_stats", path + ("mean",), module.running_mean, _same
             yield "batch_stats", path + ("var",), module.running_var, _same
+        return
+    if isinstance(module, DropBlockScheduled):
+        yield "state", path + ("step",), module.step, _same
         return
     if isinstance(module, nn.PReLU):
         yield "params", path + ("alpha",), module.weight, _same
@@ -200,7 +208,7 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
                 tensor.materialize(value.shape)
             if tuple(value.shape) != tuple(tensor.shape):
                 raise ValueError(f"{'/'.join(key)}: shape {value.shape} does not fit {tuple(tensor.shape)}")
-            tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+            tensor.copy_(torch.from_numpy(np.ascontiguousarray(value).reshape(value.shape)))  # 0-d stays 0-d
             used.add(key)
             filled.add(id(tensor))
     unused = sorted("/".join(k) for k in set(flat) - used)

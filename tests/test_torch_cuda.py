@@ -1127,3 +1127,68 @@ def test_decoder_or_head_on_cuda_matches_cpu(dev, name):
         ref = module.eval()(maps, **kwargs)
         got = module.to(dev)([m.to(dev) for m in maps], **kwargs)
     assert _same_on_card(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# The transformer and mobile encoders, the rest of nn/, SegFormer: on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _encoder_and_block_cases():
+    from pytorch_toolbelt_tpu_torch import nn as tnn
+    from pytorch_toolbelt_tpu_torch import zoo
+
+    def segformer():
+        encoder = zoo.MixVisionTransformerEncoder(embed_dims=(16, 32, 40, 64))
+        return zoo.EncoderDecoderModel(encoder, tnn.Identity(), zoo.SegFormerHead(encoder.get_output_spec(), 3,
+                                                                                    embedding_dim=32))
+
+    short_v2 = (("fused", 1, 8, 1, 1), ("fused", 4, 16, 1, 2), ("fused", 4, 16, 1, 2), ("mb", 4, 24, 1, 2),
+                ("mb", 6, 32, 1, 2))
+    return {  # name: (module factory, NCHW input shape)
+        "mit": (lambda: zoo.MixVisionTransformerEncoder(embed_dims=(16, 32, 40, 64), depths=(1, 1, 1, 1)),
+                (2, 3, 64, 66)),
+        "swin": (lambda: zoo.SwinTransformerEncoder(embed_dim=16, depths=(2, 2, 2, 2), num_heads=(2, 2, 4, 4)),
+                 (1, 3, 200, 200)),
+        "efficientnet": (lambda: zoo.EfficientNetEncoder(width_mult=0.5, depth_mult=0.3), (2, 3, 64, 66)),
+        "efficientnet_v2": (lambda: zoo.EfficientNetV2Encoder(config_override=short_v2), (2, 3, 64, 66)),
+        "mixnet": (lambda: zoo.MixNetEncoder(width_mult=0.5, depth_mult=0.3), (2, 3, 64, 66)),
+        "mobilenet_v2": (lambda: zoo.MobileNetV2Encoder(width_mult=0.5), (2, 3, 64, 66)),
+        "mobilenet_v3_large": (lambda: zoo.MobileNetV3Encoder(), (2, 3, 64, 66)),
+        "mobilenet_v3_small": (lambda: zoo.MobileNetV3Encoder(small=True), (2, 3, 64, 66)),
+        "coord_conv": (lambda: tnn.CoordConv(4, 6, with_r=True), (2, 4, 9, 8)),
+        "srm": (lambda: tnn.SRMLayer(8), (4, 8, 6, 5)),
+        "dropblock_scheduled_eval": (lambda: tnn.DropBlockScheduled(3, 0.0, 0.5, 3), (2, 4, 10, 10)),
+        "self_attention": (lambda: tnn.SelfAttentionBlock2D(8, 6, 10, scale=2), (2, 8, 8, 10)),
+        "object_context": (lambda: tnn.ObjectContextBlock(8, 12, 6, 10, sizes=(1, 2)), (2, 8, 8, 8)),
+        "asp_object_context": (lambda: tnn.ASPObjectContextBlock(8, 16, dilations=(1, 2, 3)), (2, 8, 8, 8)),
+        "pyramid_self_attention": (lambda: tnn.PyramidSelfAttentionBlock2D(8, 4, 8, 10, scale=3), (2, 8, 9, 6)),
+        "pyramid_object_context": (lambda: tnn.PyramidObjectContextBlock(8, 12, sizes=(1, 2, 3, 6)), (2, 8, 12, 12)),
+        "segformer": (segformer, (2, 3, 128, 128)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_encoder_and_block_cases()))
+def test_encoder_or_block_on_cuda_matches_cpu(dev, name):
+    """Each new encoder family, nn block and a narrow SegFormer at a small
+    size, in eval mode: on the card it returns tensors on the card that agree
+    with the same module on the CPU in fp32 with TF32 off (1e-4 * max|ref|);
+    Swin's cached mask and position index are copied to the card."""
+    torch.manual_seed(0)
+    factory, shape = _encoder_and_block_cases()[name]
+    module = factory().eval()
+    x = torch.randn(*shape, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = module(x)
+        got = module.to(dev)(x.to(dev))
+    assert _same_on_card(got, ref)
+
+
+def test_dropblock_on_cuda_draws_on_the_card(dev):
+    """DropBlock2D in training on a CUDA tensor, with a CUDA generator: the
+    mask is drawn and pooled on the card and the mean of ones stays 1."""
+    from pytorch_toolbelt_tpu_torch.nn import DropBlock2D
+
+    drop = DropBlock2D(0.2, 3, generator=torch.Generator(device=dev).manual_seed(2)).train()
+    out = drop(torch.ones(8, 3, 64, 64, device=dev))
+    assert out.is_cuda and 0.14 < float((out == 0).float().mean()) < 0.22
+    assert abs(float(out.mean()) - 1.0) < 1e-5
