@@ -14,7 +14,8 @@ ResNet34-UNet through tiled d4 inference, pad -> d2 TTA -> unpad on one
 image, config 5's strip-sharded tiled inference under an nccl process
 group, an ensemble and 3D tiles, config 2 in int8 and the int8
 SEResNeXt50-FPN, training config 3's model at config 4's shape,
-DeepLabV3+ on a ResNet-50 and SegFormer-B2 through tiled d4 inference -- and
+DeepLabV3+ on a ResNet-50, SegFormer-B2 and HRNetV2-W48 through tiled d4
+inference -- and
 holds each against an independent plain path.  Weights and
 data are random, made from a seed.
 
@@ -182,7 +183,18 @@ Phases, each printed on its own line:
      EfficientNet-B4, EfficientNetV2-S, MixNet-M, MobileNetV2 and
      MobileNetV3-large at their published widths, one [8, 3, 512, 512] bf16
      forward each against fp32 (5e-2 * max|ref| per map) and its ms; the
-     phase's own seconds.
+     phase's own seconds;
+ 20. HRNetV2-W48 (``hrnet48_encoder()``, no decoder, ``HypercolumnHead``
+     at 720 mid channels, 19 classes: HRNet-Semantic-Segmentation's
+     Cityscapes W48 setting; eager, bf16, channels_last; seeded weights,
+     residual branches' last BN and the fuse layers' BNs cut) through
+     ``tiled_apply_d4_tta`` as in phase 19, with its multiply-adds per view
+     and per run (``FlopCounterMode``) and the device time by kind told by
+     kernel name, then by the labelled module (stem, stage-1 Bottlenecks,
+     BasicBlocks, transitions, fuse layers, head); then InceptionV4,
+     WiderResNet38-A2, XResNet50, Res2Net50, SK-ResNeXt50, DenseNet121,
+     DPN92 and the HRNet-W48 encoder alone, timed as phase 19 times its
+     encoders; the phase's own seconds.
 
 Device times are medians over five windows of CUDA events; each phase
 prints the spread (min-max) of its kernel's windows beside the median.
@@ -312,8 +324,23 @@ ENCODER_WARMUP, ENCODER_REPS, ENCODER_WINDOWS = 3, 10, 5
 ENCODER_HOST_FORWARDS, ENCODER_PROFILED = 5, 5
 HOST_BOUND_IDLE = 0.2  # the card's idle share of a forward's event time from which the host is named its bound
 PROJECTION_BN_SCALE = 0.5  # see _scale_block_outputs
+FUSE_BN_SCALE = 0.5  # see _scale_residual_branches
 ENCODERS_19 = ("swin_tiny_encoder", "efficientnet_b4_encoder", "efficientnet_v2_s_encoder", "mixnet_m_encoder",
                "MobileNetV2Encoder", "mobilenet_v3_large_encoder")
+# Phase 20: HRNetV2-W48, HRNet/HRNet-Semantic-Segmentation's Cityscapes setting (experiments/cityscapes/
+# seg_hrnet_w48_train_512x1024_sgd_lr1e-2_wd5e-4_bs_12_epoch484.yaml): hrnet48_encoder + the head of
+# lib/models/seg_hrnet.py (four branches at stride 4, 48 + 96 + 192 + 384 = 720 channels, 1x1 conv, BN, ReLU,
+# conv to 19), which the repo's HypercolumnHead(mid_channels=720) is
+HRNET_MID = 720
+HRNET_SIZE, HRNET_CHECK_SIZE = 5000, 2048
+# phase 20's device time: kinds told by kernel name first, then by the labelled module whose range holds the kernel
+# (the convs of the stem, stage 1, the BasicBlocks, the transitions, the fuse layers and the head)
+HRNET_KINDS = (("K1", r"grid_merge"), ("BatchNorm", r"batch_norm|bn_fw"), ("nearest upsample", r"upsample_nearest"),
+               ("bilinear upsample", r"upsample"), ("cat", r"CatArray"), ("ReLU (clamp)", r"clamp"),
+               ("add", r"CUDAFunctor_add"))
+# and the encoders of slice I at their published widths, timed as phase 19 times its own
+ENCODERS_20 = ("inception_v4_encoder", "wider_resnet38_a2_encoder", "xresnet50_encoder", "res2net50_encoder",
+               "skresnext50_encoder", "densenet121_encoder", "dpn92_encoder", "hrnet48_encoder")
 # and for phase 14's (the fused UNet-32 of config 5)
 CONFIG5_KINDS = (("K1", r"grid_merge"), ("K2", r"conv3x3"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"),
                  ("max pooling", r"max_pool"))
@@ -2807,6 +2834,84 @@ def phase_training(dev, smi):
     return k4, merges, merges_by_route
 
 
+@torch.no_grad()
+def _tiled_d4_check(tag: str, name: str, model, forward, size: int, gen) -> dict:
+    """``tiled_apply_d4_tta`` of ``forward`` (the bf16 model) on a seeded
+    ``size``^2 image in both modes against the plain path on the fp32
+    ``model`` (5e-2 * max|ref|), each call's one K1 launch on the cell
+    route.  Returns K1's launches and launches by route."""
+    from pytorch_toolbelt_tpu_torch.inference import tiled_apply_d4_tta
+    from pytorch_toolbelt_tpu_torch.ops import grid_merge
+
+    check = torch.rand(3, size, size, device=gen.device, generator=gen)
+    runs = (("distributed", DIST_BATCH), ("full", FULL_BATCH))
+    torch.cuda.synchronize()
+    _reset_merge_counts()
+    outs = {mode: tiled_apply_d4_tta(forward, check, TILE, STEP, weight="pyramid", batch_size=batch, mode=mode)
+            for mode, batch in runs}
+    torch.cuda.synchronize()
+    launches = {"grid_merge": grid_merge.launches, "grid_merge_by_route": dict(grid_merge.launches_by_route)}
+    log(f"{tag} {name} main path launches at {size}^2: {launches}")
+    _check_merge_routes(f"{tag} {size}^2 runs", len(runs))
+    for mode, batch in runs:
+        got = outs.pop(mode).float()
+        ref = plain_tiled_d4(model, check, mode)
+        err, tol = float((got - ref).abs().max()), PATH_TOL * float(ref.abs().max())
+        ok = got.shape == (CLASSES, size, size) and bool(torch.isfinite(got).all()) and err <= tol
+        log(f"{tag} {name} tiled_apply_d4_tta {size}^2 mode={mode} batch={batch}, bf16 vs the plain path on the fp32 "
+            f"model (TF32 off): max|err| {err:.3e} <= {tol:.3e} (5e-2 * max|ref| {float(ref.abs().max()):.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the {name} tiled d4 path mode={mode} disagrees with the plain path")
+        del got, ref
+    return launches
+
+
+@torch.no_grad()
+def _tiled_d4_at_size(tag: str, name: str, forward, size: int, gen, smi, launches: dict):
+    """K1 alone at the ``size``^2 K = 19 shape (``_k1_at``); then one
+    ``size``^2 distributed run of ``forward`` after a warm-up one (cuDNN and
+    cuBLAS pick their algorithms): its wall time, MP/s, peak memory and K1's
+    one launch, on the cell route, which join ``launches``.  Returns the
+    run, for the phase's profile, and its wall time in s."""
+    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, tiled_apply_d4_tta
+    from pytorch_toolbelt_tpu_torch.ops import grid_merge
+
+    slicer = ImageSlicer((size, size), TILE, STEP, weight="pyramid")
+    ty, tx = ((t - TILE) // STEP + 1 for t in slicer.target_shape)
+    stack = torch.randn(ty * tx, CLASSES, TILE, TILE, device=gen.device, generator=gen)
+    weight = torch.as_tensor(slicer.weight.astype(np.float32), device=gen.device)
+    _k1_at(stack, weight, (ty, tx, STEP, STEP), (size, size), (slicer.margin_top, slicer.margin_left), smi,
+           phase=tag)
+    del stack
+    torch.cuda.empty_cache()
+
+    image = torch.rand(3, size, size, device=gen.device, generator=gen)
+    run = lambda: tiled_apply_d4_tta(forward, image, TILE, STEP, weight="pyramid", batch_size=DIST_BATCH,  # noqa: E731
+                                     mode="distributed")
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_merge_counts()
+    t1 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if out.shape != (CLASSES, size, size) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"the {name} {size}^2 run gave a wrong shape or non-finite values")
+    del out
+    by_route = dict(grid_merge.launches_by_route)
+    log(f"{tag} {name} tiled_apply_d4_tta {size}^2 distributed batch={DIST_BATCH} bf16: {wall:.3f} s, "
+        f"{size**2 / 1e6 / wall:.2f} MP/s, peak {peak:.2f} GiB allocated; K1 launches by route {by_route} at "
+        f"K = {CLASSES} ({smi})")
+    _check_merge_routes(f"{tag} {size}^2 distributed", 1)
+    launches["grid_merge"] += grid_merge.launches
+    for route, n in by_route.items():
+        launches["grid_merge_by_route"][route] += n
+    return run, wall
+
+
 def deeplab_r50(dev):
     """DeepLabV3+ on a ResNet-50: ``resnet50_encoder(layers=(1, 4))`` (the
     stride-4 and stride-32 maps), ``DeeplabV3PlusDecoder(**DEEPLAB_DECODER)``,
@@ -2841,69 +2946,13 @@ def phase_deeplab(dev, smi):
     memory and K1's route; under torch.profiler the idle share, device time
     by kind and top kernels; the ASPP alone.  Returns K1's launches and
     launches by route in the main path's runs."""
-    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, tiled_apply_d4_tta
-    from pytorch_toolbelt_tpu_torch.ops import grid_merge
-
     t0 = time.perf_counter()
     model, model_bf16 = deeplab_r50(dev)
     forward = image_forward(model_bf16, torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
-    check = torch.rand(3, DEEPLAB_CHECK_SIZE, DEEPLAB_CHECK_SIZE, device=dev, generator=gen)
-    runs = (("distributed", DIST_BATCH), ("full", FULL_BATCH))
-    torch.cuda.synchronize()
-    _reset_merge_counts()
-    outs = {mode: tiled_apply_d4_tta(forward, check, TILE, STEP, weight="pyramid", batch_size=batch, mode=mode)
-            for mode, batch in runs}
-    torch.cuda.synchronize()
-    launches = {"grid_merge": grid_merge.launches, "grid_merge_by_route": dict(grid_merge.launches_by_route)}
-    log(f"[18] DeepLabV3+-R50 main path launches at {DEEPLAB_CHECK_SIZE}^2: {launches}")
-    _check_merge_routes(f"[18] {DEEPLAB_CHECK_SIZE}^2 runs", len(runs))
-    for mode, batch in runs:
-        got = outs.pop(mode).float()
-        ref = plain_tiled_d4(model, check, mode)
-        err, tol = float((got - ref).abs().max()), PATH_TOL * float(ref.abs().max())
-        ok = (got.shape == (CLASSES, DEEPLAB_CHECK_SIZE, DEEPLAB_CHECK_SIZE) and bool(torch.isfinite(got).all())
-              and err <= tol)
-        log(f"[18] DeepLabV3+-R50 tiled_apply_d4_tta {DEEPLAB_CHECK_SIZE}^2 mode={mode} batch={batch}, bf16 vs the "
-            f"plain path on the fp32 model (TF32 off): max|err| {err:.3e} <= {tol:.3e} (5e-2 * max|ref| "
-            f"{float(ref.abs().max()):.3e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"the DeepLabV3+-R50 tiled d4 path mode={mode} disagrees with the plain path")
-        del got, ref
+    launches = _tiled_d4_check("[18]", "DeepLabV3+-R50", model, forward, DEEPLAB_CHECK_SIZE, gen)
     del model
-
-    slicer = ImageSlicer((DEEPLAB_SIZE, DEEPLAB_SIZE), TILE, STEP, weight="pyramid")
-    ty, tx = ((t - TILE) // STEP + 1 for t in slicer.target_shape)
-    stack = torch.randn(ty * tx, CLASSES, TILE, TILE, device=dev, generator=gen)
-    weight = torch.as_tensor(slicer.weight.astype(np.float32), device=dev)
-    _k1_at(stack, weight, (ty, tx, STEP, STEP), (DEEPLAB_SIZE, DEEPLAB_SIZE), (slicer.margin_top, slicer.margin_left),
-           smi, phase="[18]")
-    del stack
-    torch.cuda.empty_cache()
-
-    image = torch.rand(3, DEEPLAB_SIZE, DEEPLAB_SIZE, device=dev, generator=gen)
-    run = lambda: tiled_apply_d4_tta(forward, image, TILE, STEP, weight="pyramid", batch_size=DIST_BATCH,  # noqa: E731
-                                     mode="distributed")
-    run()  # warm-up: cuDNN picks its algorithms for these shapes
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_merge_counts()
-    t1 = time.perf_counter()
-    out = run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    if out.shape != (CLASSES, DEEPLAB_SIZE, DEEPLAB_SIZE) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"the DeepLabV3+-R50 {DEEPLAB_SIZE}^2 run gave a wrong shape or non-finite values")
-    del out
-    by_route = dict(grid_merge.launches_by_route)
-    log(f"[18] DeepLabV3+-R50 tiled_apply_d4_tta {DEEPLAB_SIZE}^2 distributed batch={DIST_BATCH} bf16: {wall:.3f} s, "
-        f"{DEEPLAB_SIZE**2 / 1e6 / wall:.2f} MP/s, peak {peak:.2f} GiB allocated; K1 launches by route {by_route} at "
-        f"K = {CLASSES} ({smi})")
-    _check_merge_routes(f"[18] {DEEPLAB_SIZE}^2 distributed", 1)
-    launches["grid_merge"] += grid_merge.launches
-    for route, n in by_route.items():
-        launches["grid_merge_by_route"][route] += n
+    run, _ = _tiled_d4_at_size("[18]", "DeepLabV3+-R50", forward, DEEPLAB_SIZE, gen, smi, launches)
 
     coarse = []  # every batch's coarse map, kept by a hook during the profiled run (after the peak was read)
     hook = model_bf16.decoder.aspp.register_forward_pre_hook(lambda m, args: coarse.append(args[0]))
@@ -2914,7 +2963,7 @@ def phase_deeplab(dev, smi):
     log(f"[18] the ASPP alone (dilated 3x3 depthwise + 1x1 branches, pooling, projection) on the run's "
         f"{len(coarse)} coarse maps ({sum(x.shape[0] for x in coarse)} views of {list(coarse[0].shape[1:])} bf16, "
         f"batches of {sorted({x.shape[0] for x in coarse})}): {aspp_ms} per run ({smi})")
-    del coarse, model_bf16, image
+    del coarse, model_bf16, run
     torch.cuda.empty_cache()
     log(f"[18] phase 18: {time.perf_counter() - t0:.1f} s")
     return launches
@@ -2993,6 +3042,49 @@ def _scale_block_outputs(model):
     return model
 
 
+def _scale_residual_branches(model):
+    """As config3_model does: in the ResNet-family blocks of slice I (the
+    ResNet BasicBlock and Bottleneck that HRNet builds on, Res2Net, the SK
+    blocks, XResNet) the last BatchNorm of the residual branch and of the
+    projection shortcut gets its scale cut by RESIDUAL_BN_SCALE; in the
+    pre-activation blocks (WiderResNet's, DPN's), whose branches end in a
+    conv, that conv's weight is; and in HRNet's fuse layers every BatchNorm's
+    scale is cut by FUSE_BN_SCALE.  So a deep seeded encoder's activations
+    stay of order one where branches add up (HRNetV2-W48's logits reach
+    ~7e9 without, ~80 with, on a 128^2 CPU run)."""
+    from pytorch_toolbelt_tpu_torch.zoo import (DualPathBlock, IdentityResidualBlock, Res2NetBottleneck, SKBasicBlock,
+                                               SKBottleneck, XResNetBlock)
+    from pytorch_toolbelt_tpu_torch.zoo.encoders.hrnet import _FuseLayer
+    from pytorch_toolbelt_tpu_torch.zoo.encoders.resnet import BasicBlock, Bottleneck
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (BasicBlock, SKBasicBlock)):
+                last = [m.bn2]
+            elif isinstance(m, (Bottleneck, Res2NetBottleneck, SKBottleneck)):
+                last = [m.bn3]
+            elif isinstance(m, XResNetBlock):
+                last = [m.convs[-1].bn] + ([] if m.shortcut is None else [m.shortcut.bn])
+            elif isinstance(m, (IdentityResidualBlock, DualPathBlock)):
+                convs = ([m.conv2 if m.conv3 is None else m.conv3] if isinstance(m, IdentityResidualBlock)
+                         else [c for c in (m.conv_c, m.conv_dense) if c is not None])
+                for conv in convs:
+                    conv.weight.mul_(RESIDUAL_BN_SCALE)
+                continue
+            elif isinstance(m, _FuseLayer):
+                for bn in m.modules():
+                    if isinstance(bn, torch.nn.BatchNorm2d):
+                        bn.weight.mul_(FUSE_BN_SCALE)
+                continue
+            else:
+                continue
+            if getattr(m, "downsample", None) is not None:
+                last.append(m.downsample[-1])
+            for bn in last:
+                bn.weight.mul_(RESIDUAL_BN_SCALE)
+    return model
+
+
 def _forward_times(fn) -> tuple:
     """Times of one call of ``fn``, a forward of a few hundred kernels: (its
     device time between CUDA events, a Timing over ENCODER_WINDOWS windows of
@@ -3013,21 +3105,21 @@ def _forward_times(fn) -> tuple:
 
 
 @torch.no_grad()
-def _encoders_at_width(dev, smi) -> None:
-    """Each of ENCODERS_19 at its published width (seeded weights, block
-    outputs scaled by ``_scale_block_outputs``): one [8, 3, 512, 512]
-    bf16 forward against the fp32 forward (5e-2 * max|ref| on every feature
-    map); then the bf16 forward's device time, the host's time to launch it
-    and the card's busy share (``_forward_times``)."""
+def _encoders_at_width(dev, smi, tag: str, names, seed: int, scale) -> None:
+    """Each encoder factory of ``names`` at its published width (seeded
+    weights, block outputs cut by ``scale``): one [8, 3, 512, 512] bf16
+    forward against the fp32 forward (5e-2 * max|ref| on every feature map);
+    then the bf16 forward's device time, the host's time to launch it and
+    the card's busy share (``_forward_times``)."""
     import copy
 
     from pytorch_toolbelt_tpu_torch import zoo
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 191)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.rand(ENCODER_BATCH, 3, TILE, TILE, device=dev, generator=gen).contiguous(
         memory_format=torch.channels_last)
-    for i, name in enumerate(ENCODERS_19):
-        model = _scale_block_outputs(seed_linear_weights(getattr(zoo, name)(), SEED + 192 + i)).eval()
+    for i, name in enumerate(names):
+        model = scale(seed_linear_weights(getattr(zoo, name)(), seed + 1 + i)).eval()
         model = model.to(dev, memory_format=torch.channels_last)
         refs = model(x)
         model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
@@ -3042,7 +3134,7 @@ def _encoders_at_width(dev, smi) -> None:
                                      f"{err:.3e} > {tol:.3e}")
             errs.append(f"{err / float(ref.abs().max()):.2e}")
         ms, launch_ms, busy_ms = _forward_times(lambda: model_bf16(xb))
-        log(f"[19] {name} [{ENCODER_BATCH}, 3, {TILE}, {TILE}] bf16 vs fp32 (TF32 off): max|err| / max|ref| per map "
+        log(f"{tag} {name} [{ENCODER_BATCH}, 3, {TILE}, {TILE}] bf16 vs fp32 (TF32 off): max|err| / max|ref| per map "
             f"{', '.join(errs)} <= {PATH_TOL:.0e} ok; maps {[tuple(o.shape[1:]) for o in outs]}; per forward: {ms} "
             f"between CUDA events ({ENCODER_WINDOWS} windows of {ENCODER_REPS}), host {launch_ms:.3f} ms to launch "
             f"it ({launch_ms / ms:.0%} of the event time), device busy {busy_ms:.3f} ms under torch.profiler (idle "
@@ -3061,76 +3153,95 @@ def phase_segformer(dev, smi):
     top kernels; then the other transformer and mobile encoders at their
     published widths.  Returns K1's launches and launches by route in the
     main path's runs."""
-    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, tiled_apply_d4_tta
-    from pytorch_toolbelt_tpu_torch.ops import grid_merge
-
     t0 = time.perf_counter()
     model, model_bf16 = segformer_b2(dev)
     forward = image_forward(model_bf16, torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
-    check = torch.rand(3, SEGFORMER_CHECK_SIZE, SEGFORMER_CHECK_SIZE, device=dev, generator=gen)
-    runs = (("distributed", DIST_BATCH), ("full", FULL_BATCH))
-    torch.cuda.synchronize()
-    _reset_merge_counts()
-    outs = {mode: tiled_apply_d4_tta(forward, check, TILE, STEP, weight="pyramid", batch_size=batch, mode=mode)
-            for mode, batch in runs}
-    torch.cuda.synchronize()
-    launches = {"grid_merge": grid_merge.launches, "grid_merge_by_route": dict(grid_merge.launches_by_route)}
-    log(f"[19] SegFormer-B2 main path launches at {SEGFORMER_CHECK_SIZE}^2: {launches}")
-    _check_merge_routes(f"[19] {SEGFORMER_CHECK_SIZE}^2 runs", len(runs))
-    for mode, batch in runs:
-        got = outs.pop(mode).float()
-        ref = plain_tiled_d4(model, check, mode)
-        err, tol = float((got - ref).abs().max()), PATH_TOL * float(ref.abs().max())
-        ok = (got.shape == (CLASSES, SEGFORMER_CHECK_SIZE, SEGFORMER_CHECK_SIZE) and bool(torch.isfinite(got).all())
-              and err <= tol)
-        log(f"[19] SegFormer-B2 tiled_apply_d4_tta {SEGFORMER_CHECK_SIZE}^2 mode={mode} batch={batch}, bf16 vs the "
-            f"plain path on the fp32 model (TF32 off): max|err| {err:.3e} <= {tol:.3e} (5e-2 * max|ref| "
-            f"{float(ref.abs().max()):.3e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"the SegFormer-B2 tiled d4 path mode={mode} disagrees with the plain path")
-        del got, ref
+    launches = _tiled_d4_check("[19]", "SegFormer-B2", model, forward, SEGFORMER_CHECK_SIZE, gen)
     del model
-
-    slicer = ImageSlicer((SEGFORMER_SIZE, SEGFORMER_SIZE), TILE, STEP, weight="pyramid")
-    ty, tx = ((t - TILE) // STEP + 1 for t in slicer.target_shape)
-    stack = torch.randn(ty * tx, CLASSES, TILE, TILE, device=dev, generator=gen)
-    weight = torch.as_tensor(slicer.weight.astype(np.float32), device=dev)
-    _k1_at(stack, weight, (ty, tx, STEP, STEP), (SEGFORMER_SIZE, SEGFORMER_SIZE),
-           (slicer.margin_top, slicer.margin_left), smi, phase="[19]")
-    del stack
-    torch.cuda.empty_cache()
-
-    image = torch.rand(3, SEGFORMER_SIZE, SEGFORMER_SIZE, device=dev, generator=gen)
-    run = lambda: tiled_apply_d4_tta(forward, image, TILE, STEP, weight="pyramid", batch_size=DIST_BATCH,  # noqa: E731
-                                     mode="distributed")
-    run()  # warm-up: cuDNN and cuBLAS pick their algorithms for these shapes
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_merge_counts()
-    t1 = time.perf_counter()
-    out = run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    if out.shape != (CLASSES, SEGFORMER_SIZE, SEGFORMER_SIZE) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"the SegFormer-B2 {SEGFORMER_SIZE}^2 run gave a wrong shape or non-finite values")
-    del out
-    by_route = dict(grid_merge.launches_by_route)
-    log(f"[19] SegFormer-B2 tiled_apply_d4_tta {SEGFORMER_SIZE}^2 distributed batch={DIST_BATCH} bf16: {wall:.3f} s, "
-        f"{SEGFORMER_SIZE**2 / 1e6 / wall:.2f} MP/s, peak {peak:.2f} GiB allocated; K1 launches by route {by_route} "
-        f"at K = {CLASSES} ({smi})")
-    _check_merge_routes(f"[19] {SEGFORMER_SIZE}^2 distributed", 1)
-    launches["grid_merge"] += grid_merge.launches
-    for route, n in by_route.items():
-        launches["grid_merge_by_route"][route] += n
+    run, _ = _tiled_d4_at_size("[19]", "SegFormer-B2", forward, SEGFORMER_SIZE, gen, smi, launches)
 
     _log_profile_by_kind(f"[19] profiled {SEGFORMER_SIZE}^2 distributed run", run, SEGFORMER_KINDS, smi, top=12,
                          labels=_segformer_labels(model_bf16))
-    del model_bf16, image
+    del model_bf16, run
     torch.cuda.empty_cache()
-    _encoders_at_width(dev, smi)
+    _encoders_at_width(dev, smi, "[19]", ENCODERS_19, SEED + 191, _scale_block_outputs)
     log(f"[19] phase 19: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def hrnet_w48(dev):
+    """HRNetV2-W48 at its published width: ``hrnet48_encoder()``, no decoder
+    (``Identity``), ``HypercolumnHead(spec, 19, mid_channels=720)``; seeded
+    weights, residual branches and fuse layers cut by
+    ``_scale_residual_branches``.  Returns the fp32 and the bf16 model, both
+    channels_last."""
+    import copy
+
+    from pytorch_toolbelt_tpu_torch.nn import Identity
+    from pytorch_toolbelt_tpu_torch.zoo import EncoderDecoderModel, HypercolumnHead, hrnet48_encoder
+
+    encoder = hrnet48_encoder()
+    head = HypercolumnHead(encoder.get_output_spec(), CLASSES, mid_channels=HRNET_MID)
+    model = _scale_residual_branches(seed_weights(EncoderDecoderModel(encoder, Identity(), head), SEED + 20))
+    model = model.eval().to(dev, memory_format=torch.channels_last)
+    return model, copy.deepcopy(model).to(torch.bfloat16)
+
+
+def _hrnet_labels(model) -> dict:
+    """{module: kind} of the modules whose convs phase 20's profile tells
+    apart: the stem, the stage-1 Bottlenecks, the BasicBlocks of every
+    branch, the transitions, the fuse layers and the head."""
+    encoder = model.encoder
+    labels = {m: "stem" for m in (encoder.conv1, encoder.bn1, encoder.conv2, encoder.bn2)}
+    labels[encoder.layer1] = "stage-1 Bottlenecks"
+    for step in encoder.transitions:
+        labels.update({t: "transitions" for t in step if not isinstance(t, torch.nn.Identity)})
+    for stage in encoder.stages:
+        for module in stage:
+            labels.update({blocks: "BasicBlocks" for blocks in module.branches})
+            labels[module.fuse] = "fuse layers"
+    labels[model.head] = "head"
+    return labels
+
+
+@torch.no_grad()
+def phase_hrnet(dev, smi):
+    """HRNetV2-W48 through tiled d4 inference: at 2048^2 in both modes
+    against the plain path on the fp32 model; K1 alone at the 5000^2 K = 19
+    shape; one 5000^2 distributed run for its wall time, peak memory and
+    K1's route; its multiply-adds (FlopCounterMode on one view); under
+    torch.profiler the idle share, device time by kind and top kernels; then
+    the other CNN encoders of slice I at their published widths.  Returns
+    K1's launches and launches by route in the main path's runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer
+
+    t0 = time.perf_counter()
+    model, model_bf16 = hrnet_w48(dev)
+    forward = image_forward(model_bf16, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    launches = _tiled_d4_check("[20]", "HRNetV2-W48", model, forward, HRNET_CHECK_SIZE, gen)
+    del model
+    run, wall = _tiled_d4_at_size("[20]", "HRNetV2-W48", forward, HRNET_SIZE, gen, smi, launches)
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        forward(torch.zeros(1, 3, TILE, TILE, device=dev))
+    macs = counter.get_total_flops() / 2
+    slicer = ImageSlicer((HRNET_SIZE, HRNET_SIZE), TILE, STEP, weight="pyramid")
+    views = 2 * len(slicer.crops)  # distributed mode: two views of each tile
+    log(f"[20] HRNetV2-W48 multiply-adds (FlopCounterMode, convs): {macs / 1e9:.1f} G per {TILE}^2 view, "
+        f"{views} views per {HRNET_SIZE}^2 distributed run = {macs * views / 1e12:.1f} T, "
+        f"{2 * macs * views / wall / 1e12:.1f} TFLOP/s over the run's wall ({2 * macs * views / wall / BF16_PEAK:.1%} "
+        f"of the bf16 peak) ({smi})")
+    _log_profile_by_kind(f"[20] profiled {HRNET_SIZE}^2 distributed run", run, HRNET_KINDS, smi, top=12,
+                         labels=_hrnet_labels(model_bf16))
+    del model_bf16, run
+    torch.cuda.empty_cache()
+    _encoders_at_width(dev, smi, "[20]", ENCODERS_20, SEED + 201, _scale_residual_branches)
+    log(f"[20] phase 20: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3201,6 +3312,11 @@ def main() -> int:
     segformer = phase_segformer(dev, smi)
     launches["grid_merge"] += segformer["grid_merge"]
     for route, n in segformer["grid_merge_by_route"].items():
+        launches["grid_merge_by_route"][route] += n
+    torch.cuda.empty_cache()
+    hrnet = phase_hrnet(dev, smi)
+    launches["grid_merge"] += hrnet["grid_merge"]
+    for route, n in hrnet["grid_merge_by_route"].items():
         launches["grid_merge_by_route"][route] += n
 
     kernels = [

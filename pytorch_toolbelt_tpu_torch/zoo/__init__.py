@@ -27,7 +27,7 @@ from .heads import (
     SegFormerHead,
 )
 from .models import EncoderDecoderModel, UNetSegmentationModel
-from .porting import flax_name_map, load_flax_variables
+from .porting import flax_name_map, load_flax_variables, port_torch_state_dict
 from .quantized_encdec import attribute_quantization_error, quantize_encoder_decoder_inference
 from .quantized_unet import quantize_unet_inference
 
@@ -59,6 +59,7 @@ __all__ = [
     "fuse_unet_inference",
     "flax_name_map",
     "load_flax_variables",
+    "port_torch_state_dict",
     "quantize_encoder_decoder_inference",
     "quantize_unet_inference",
     *_encoders_all,

@@ -35,8 +35,9 @@ numbered coarsest stage first.  MiT and Swin name their blocks by hand
 (``MiTBlock_{i}``, ``SwinBlock_{i}``, counted over all stages), which is
 how the numbering names them.  The exceptions are named here: the
 composite models' and ``GenericEncoder``'s attributes, the SENet's own
-names (``layer0_conv1``, ``layer{s}_{i}/conv1``, ``.../se/se_fc1``) and the
-FPN decoder's ``Conv_0..Conv_{L-1}`` (the laterals fine -> coarse, then one
+names (``layer0_conv1``, ``layer{s}_{i}/conv1``, ``.../se/se_fc1``), the
+WiderResNet's (``mod1_conv1``, ``mod{m}_block{b}/proj_conv``, the port's
+attribute names) and the FPN decoder's ``Conv_0..Conv_{L-1}`` (the laterals fine -> coarse, then one
 prediction conv per fused level, the second-coarsest first).
 ``FullyConnectedClassificationHead`` flattens NCHW in (c, h, w) order where
 flax flattens NHWC in (h, w, c) order, so its kernel's rows are reordered.
@@ -44,6 +45,13 @@ flax flattens NHWC in (h, w, c) order, so its kernel's rows are reordered.
 :func:`flax_name_map` gives the reverse map, torch name -> flax path, which
 the parity tests use to compare gradients, param groups and running
 statistics with the JAX package's.
+
+:func:`port_torch_state_dict` fills a port module from a state dict in the
+layout of the reference's torch modules (pytorch-toolbelt's and Cadene's
+backbones), through a mapping {flax path: torch key} of the JAX package's
+form.  The mapping builders below are the JAX package's, copied: each flax
+path reaches the port's tensor through the bridge's naming, and a
+reference tensor, already in torch layout, is copied as it is.
 """
 
 from typing import Callable, Dict, Iterator, List, Mapping, Tuple
@@ -55,11 +63,26 @@ from torch import nn
 from ..nn.dropblock import DropBlockScheduled
 from .decoders.fpn import FPNDecoder
 from .encoders.common import GenericEncoder
+from .encoders.mobilenet import _V2_CONFIG
 from .encoders.senet import SENetBottleneck, SENetEncoder, SEModule
+from .encoders.wide_resnet import _MODULE_CHANNELS, IdentityResidualBlock, WiderResNetEncoder
 from .heads.classification import FullyConnectedClassificationHead
 from .models import EncoderDecoderModel, UNetSegmentationModel
 
-__all__ = ["flax_name_map", "load_flax_variables"]
+__all__ = [
+    "bn_mapping",
+    "conv_mapping",
+    "flax_name_map",
+    "fpn_decoder_mapping",
+    "inception_v4_mapping",
+    "load_flax_variables",
+    "mobilenet_v2_mapping",
+    "port_torch_state_dict",
+    "prefix_mapping",
+    "resize_head_mapping",
+    "senet_mapping",
+    "wider_resnet_mapping",
+]
 
 _Leaf = Tuple[str, Tuple[str, ...], torch.Tensor, Callable[[np.ndarray], np.ndarray]]
 
@@ -138,6 +161,8 @@ def _children(module: nn.Module):
         return children + [("se", module.se_module)]
     if isinstance(module, SEModule):
         return [("se_fc1", module.fc1), ("se_fc2", module.fc2)]
+    if isinstance(module, (WiderResNetEncoder, IdentityResidualBlock)):
+        return list(module.named_children())
     if isinstance(module, FPNDecoder):
         convs = list(module.lateral) + [p for p in module.predict if isinstance(p, nn.Conv2d)]
         return [(f"Conv_{i}", conv) for i, conv in enumerate(convs)]
@@ -231,3 +256,194 @@ def flax_name_map(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
     name_of = {id(t): name for name, t in model.named_parameters()}
     name_of.update({id(t): name for name, t in model.named_buffers()})
     return {name_of[id(tensor)]: (collection, path) for collection, path, tensor, _ in _leaves(model, ())}
+
+
+def port_torch_state_dict(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
+                          mapping: Mapping[Tuple[str, ...], str], strict: bool = True) -> nn.Module:
+    """Copy the tensors of a reference-layout torch ``state_dict`` into
+    ``model`` in place and return it.
+
+    ``mapping`` is {flax path: torch key}, the flax path with its collection
+    first (``('params', 'Conv_0', 'kernel')``, ``('batch_stats',
+    'BatchNorm_0', 'mean')``), as the JAX package's ``port_torch_state_dict``
+    takes it and the builders of this module make it.  A flax path the
+    model lacks raises ``KeyError``; a torch key the state dict lacks raises
+    ``KeyError`` under ``strict`` and is skipped otherwise; a tensor of
+    another shape than the model's raises ``ValueError``.  Tensors no entry
+    maps keep their values.
+    """
+    tensors = {(collection,) + path: tensor for collection, path, tensor, _ in _leaves(model, ())}
+    with torch.no_grad():
+        for flax_path, torch_key in mapping.items():
+            flax_path = tuple(str(p) for p in flax_path)
+            if flax_path not in tensors:
+                raise KeyError(f"Flax path {flax_path} not found in the model")
+            if torch_key not in state_dict:
+                if strict:
+                    raise KeyError(f"Torch key '{torch_key}' not found in state dict")
+                continue
+            tensor, value = tensors[flax_path], torch.as_tensor(state_dict[torch_key])
+            if tuple(value.shape) != tuple(tensor.shape):
+                raise ValueError(f"{torch_key}: shape {tuple(value.shape)} does not fit "
+                                 f"{'/'.join(flax_path)} of shape {tuple(tensor.shape)}")
+            tensor.copy_(value)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Mapping builders for the reference's torch backbones (copied from the JAX
+# package's ``zoo/porting.py``)
+# ---------------------------------------------------------------------------
+
+
+def conv_mapping(flax_prefix: Tuple[str, ...], torch_prefix: str, bias: bool = False) -> Dict:
+    """{flax path: torch key} entries for one conv layer."""
+    m = {("params",) + flax_prefix + ("kernel",): f"{torch_prefix}.weight"}
+    if bias:
+        m[("params",) + flax_prefix + ("bias",)] = f"{torch_prefix}.bias"
+    return m
+
+
+def bn_mapping(flax_prefix: Tuple[str, ...], torch_prefix: str) -> Dict:
+    """{flax path: torch key} entries for one BatchNorm layer (affine and
+    running statistics)."""
+    return {
+        ("params",) + flax_prefix + ("scale",): f"{torch_prefix}.weight",
+        ("params",) + flax_prefix + ("bias",): f"{torch_prefix}.bias",
+        ("batch_stats",) + flax_prefix + ("mean",): f"{torch_prefix}.running_mean",
+        ("batch_stats",) + flax_prefix + ("var",): f"{torch_prefix}.running_var",
+    }
+
+
+def prefix_mapping(mapping: Mapping[Tuple[str, ...], str], flax_prefix: Tuple[str, ...]) -> Dict:
+    """Re-root every flax path of ``mapping`` under ``flax_prefix``, after
+    the collection (``('params', *prefix, ...)``), so that component mappings
+    compose into an ``EncoderDecoderModel`` ('encoder', 'decoder', 'head')."""
+    return {(path[0],) + tuple(flax_prefix) + tuple(path[1:]): key for path, key in mapping.items()}
+
+
+def fpn_decoder_mapping(num_levels: int, torch_prefix: str = "") -> Dict[Tuple[str, ...], str]:
+    """FPNDecoder <- the reference's FPNDecoder: the laterals are
+    Conv_0..Conv_{n-1} fine -> coarse (torch ``lateral.{i}``), the prediction
+    convs Conv_{n+j} (torch ``outputs.{j}``, j = 0 the coarsest
+    non-context level)."""
+    p = f"{torch_prefix}." if torch_prefix else ""
+    m: Dict[Tuple[str, ...], str] = {}
+    for i in range(num_levels):
+        m.update(conv_mapping((f"Conv_{i}",), f"{p}lateral.{i}", bias=True))
+    for j in range(num_levels - 1):
+        m.update(conv_mapping((f"Conv_{num_levels + j}",), f"{p}outputs.{j}", bias=True))
+    return m
+
+
+def resize_head_mapping(torch_prefix: str = "") -> Dict[Tuple[str, ...], str]:
+    """ResizeHead <- the reference's ResizeHead: one biased conv ('final')."""
+    p = f"{torch_prefix}." if torch_prefix else ""
+    return conv_mapping(("Conv_0",), f"{p}final", bias=True)
+
+
+def mobilenet_v2_mapping() -> Dict[Tuple[str, ...], str]:
+    """MobileNetV2Encoder <- the reference's torch MobileNetV2."""
+    m = {}
+    m.update(conv_mapping(("Conv_0",), "layer0.0"))
+    m.update(bn_mapping(("BatchNorm_0",), "layer0.1"))
+    block = 0
+    for layer_index, (t, _, n, _) in enumerate(_V2_CONFIG):
+        for i in range(n):
+            fp, tp = f"InvertedResidual_{block}", f"layer{layer_index + 1}.{i}.conv"
+            # t == 1: dw, bn, act, pw-linear, bn; else pw, bn, act, dw, bn, act, pw-linear, bn
+            for k, index in enumerate((0, 3) if t == 1 else (0, 3, 6)):
+                m.update(conv_mapping((fp, f"Conv_{k}"), f"{tp}.{index}"))
+                m.update(bn_mapping((fp, f"BatchNorm_{k}"), f"{tp}.{index + 1}"))
+            block += 1
+    return m
+
+
+def senet_mapping(stage_blocks: Tuple[int, ...], input_3x3: bool = False) -> Dict[Tuple[str, ...], str]:
+    """SENetEncoder <- the reference's torch SENet: the stem, every
+    bottleneck's convs, BNs and SE gate, and the first blocks' shortcut
+    projections."""
+    m = {}
+    for i in (1, 2, 3) if input_3x3 else (1,):
+        m.update(conv_mapping((f"layer0_conv{i}",), f"layer0.conv{i}"))
+        m.update(bn_mapping((f"layer0_bn{i}",), f"layer0.bn{i}"))
+    for stage, num_blocks in enumerate(stage_blocks, start=1):
+        for i in range(num_blocks):
+            fp, tp = f"layer{stage}_{i}", f"layer{stage}.{i}"
+            for c in ("conv1", "conv2", "conv3"):
+                m.update(conv_mapping((fp, c), f"{tp}.{c}"))
+            for b in ("bn1", "bn2", "bn3"):
+                m.update(bn_mapping((fp, b), f"{tp}.{b}"))
+            m.update(conv_mapping((fp, "se", "se_fc1"), f"{tp}.se_module.fc1", bias=True))
+            m.update(conv_mapping((fp, "se", "se_fc2"), f"{tp}.se_module.fc2", bias=True))
+            if i == 0:  # every stage's first block projects the shortcut
+                m.update(conv_mapping((fp, "downsample_conv"), f"{tp}.downsample.0"))
+                m.update(bn_mapping((fp, "downsample_bn"), f"{tp}.downsample.1"))
+    return m
+
+
+def inception_v4_mapping(stage_repeats: Tuple[int, int, int] = (4, 7, 3)) -> Dict[Tuple[str, ...], str]:
+    """InceptionV4Encoder <- the reference's torch InceptionV4 (Cadene's
+    ``features.N`` layout; the indices shift with ``stage_repeats`` where the
+    torch model is assembled with fewer blocks).  ConvBN k is the k-th the
+    module creates; each is a torch BasicConv2d (``.conv``, ``.bn``)."""
+    na, nb, nc = stage_repeats
+    m = {}
+
+    def cb(flax_idx: int, torch_path: str, outer: Tuple[str, ...] = ()):
+        m.update(conv_mapping(outer + (f"ConvBN_{flax_idx}", "Conv_0"), f"{torch_path}.conv"))
+        m.update(bn_mapping(outer + (f"ConvBN_{flax_idx}", "BatchNorm_0"), f"{torch_path}.bn"))
+
+    stem = ["features.0", "features.1", "features.2", "features.3.conv", "features.4.branch0.0",
+            "features.4.branch0.1", "features.4.branch1.0", "features.4.branch1.1", "features.4.branch1.2",
+            "features.4.branch1.3", "features.5.conv"]
+    for j, path in enumerate(stem):
+        cb(j, path)
+    a_branches = ["branch0", "branch1.0", "branch1.1", "branch2.0", "branch2.1", "branch2.2", "branch3.1"]
+    for i in range(na):
+        for j, b in enumerate(a_branches):
+            cb(j, f"features.{6 + i}.{b}", (f"InceptionA_{i}",))
+    for j, b in enumerate(["branch0", "branch1.0", "branch1.1", "branch1.2"]):
+        cb(j, f"features.{6 + na}.{b}", ("ReductionA_0",))
+    b_branches = ["branch0", "branch1.0", "branch1.1", "branch1.2", "branch2.0", "branch2.1", "branch2.2",
+                  "branch2.3", "branch2.4", "branch3.1"]
+    for i in range(nb):
+        for j, b in enumerate(b_branches):
+            cb(j, f"features.{7 + na + i}.{b}", (f"InceptionB_{i}",))
+    for j, b in enumerate(["branch0.0", "branch0.1", "branch1.0", "branch1.1", "branch1.2", "branch1.3"]):
+        cb(j, f"features.{7 + na + nb}.{b}", ("ReductionB_0",))
+    c_branches = ["branch0", "branch1_0", "branch1_1a", "branch1_1b", "branch2_0", "branch2_1", "branch2_2",
+                  "branch2_3a", "branch2_3b", "branch3.1"]
+    for i in range(nc):
+        for j, b in enumerate(c_branches):
+            cb(j, f"features.{8 + na + nb + i}.{b}", (f"InceptionC_{i}",))
+    return m
+
+
+def wider_resnet_mapping(structure: Tuple[int, ...], a2: bool = False,
+                         dilation: bool = False) -> Dict[Tuple[str, ...], str]:
+    """WiderResNetEncoder <- the reference's torch WiderResNet / A2, whose
+    ABN norm layers hold their BatchNorm under '<bn>.bn'."""
+    m = conv_mapping(("mod1_conv1",), "mod1.conv1")
+    in_channels = 64
+    for mod_id, num_blocks in enumerate(structure):
+        channels = _MODULE_CHANNELS[mod_id]
+        for block_id in range(num_blocks):
+            if a2 and not dilation:
+                stride = 2 if block_id == 0 and 2 <= mod_id <= 4 else 1
+            elif a2 and dilation:
+                stride = 2 if block_id == 0 and mod_id == 2 else 1
+            else:
+                stride = 1
+            fp, tp = f"mod{mod_id + 2}_block{block_id + 1}", f"mod{mod_id + 2}.block{block_id + 1}"
+            m.update(bn_mapping((fp, "bn1"), f"{tp}.bn1.bn"))
+            m.update(conv_mapping((fp, "conv1"), f"{tp}.convs.conv1"))
+            m.update(bn_mapping((fp, "bn2"), f"{tp}.convs.bn2.bn"))
+            m.update(conv_mapping((fp, "conv2"), f"{tp}.convs.conv2"))
+            if len(channels) == 3:
+                m.update(bn_mapping((fp, "bn3"), f"{tp}.convs.bn3.bn"))
+                m.update(conv_mapping((fp, "conv3"), f"{tp}.convs.conv3"))
+            if stride != 1 or in_channels != channels[-1]:
+                m.update(conv_mapping((fp, "proj_conv"), f"{tp}.proj_conv"))
+            in_channels = channels[-1]
+    return m

@@ -1192,3 +1192,75 @@ def test_dropblock_on_cuda_draws_on_the_card(dev):
     out = drop(torch.ones(8, 3, 64, 64, device=dev))
     assert out.is_cuda and 0.14 < float((out == 0).float().mean()) < 0.22
     assert abs(float(out.mean()) - 1.0) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The CNN encoders of slice I, HRNetV2 and the torch state-dict loader: on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _cnn_encoder_cases():
+    from pytorch_toolbelt_tpu_torch import nn as tnn
+    from pytorch_toolbelt_tpu_torch import zoo
+
+    def hrnetv2():
+        encoder = zoo.HRNetEncoder(width=8, stage_modules=(1, 1, 1), blocks_per_module=2, stage1_blocks=1)
+        return zoo.EncoderDecoderModel(encoder, tnn.Identity(), zoo.HypercolumnHead(encoder.get_output_spec(), 3,
+                                                                                      mid_channels=16))
+
+    dpn = dict(stage_blocks=(1, 2, 1, 1), base_width=(16, 16, 32, 32), res_width=(16, 32, 32, 64), inc=(4, 4, 8, 8),
+               groups=4, stem_channels=8, small_stem=True)
+    return {  # name: (module factory, NCHW input shape)
+        "hrnet": (lambda: zoo.HRNetEncoder(width=8, stage_modules=(1, 2, 1), blocks_per_module=1, stage1_blocks=1),
+                  (2, 3, 64, 66)),
+        "hrnetv2_hypercolumn": (hrnetv2, (2, 3, 128, 128)),
+        "se_xresnet": (lambda: zoo.XResNetEncoder(expansion=4, blocks=(1, 1, 1, 1), use_se=True), (2, 3, 64, 64)),
+        "res2net": (lambda: zoo.Res2NetEncoder(stage_blocks=(1, 1, 1, 1)), (2, 3, 64, 64)),
+        "skresnext": (lambda: zoo.SKResNetEncoder(stage_blocks=(1, 1, 1, 1), bottleneck=True, groups=32,
+                                                  base_width=4), (2, 3, 64, 66)),
+        "densenet": (lambda: zoo.DenseNetEncoder(block_config=(2, 2, 2, 2), growth_rate=8, num_init_features=16),
+                     (2, 3, 64, 66)),
+        "dpn": (lambda: zoo.DPNEncoder(**dpn), (2, 3, 64, 66)),
+        "dpn_b_style": (lambda: zoo.DPNEncoder(**dpn, b_style=True), (2, 3, 64, 64)),
+        "inception_same": (lambda: zoo.InceptionV4Encoder(stage_repeats=(1, 1, 1)), (1, 3, 66, 66)),
+        "inception_torch_compat": (lambda: zoo.InceptionV4Encoder(stage_repeats=(1, 1, 1), torch_compat=True),
+                                   (1, 3, 99, 99)),
+        "wider_resnet16": (lambda: zoo.wider_resnet16_encoder(), (1, 3, 64, 66)),
+        "wider_resnet16_a2_dilated": (lambda: zoo.wider_resnet16_a2_encoder(dilation=True), (1, 3, 64, 64)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_cnn_encoder_cases()))
+def test_cnn_encoder_on_cuda_matches_cpu(dev, name):
+    """Each slice-I encoder family and a narrow HRNetV2 + HypercolumnHead at
+    a small size, in eval mode: on the card it returns tensors on the card
+    that agree with the same module on the CPU in fp32 with TF32 off (1e-4 *
+    max|ref|)."""
+    torch.manual_seed(0)
+    factory, shape = _cnn_encoder_cases()[name]
+    module = factory().eval()
+    x = torch.randn(*shape, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = module(x)
+        got = module.to(dev)(x.to(dev))
+    assert _same_on_card(got, ref)
+
+
+def test_port_torch_state_dict_fills_a_model_on_the_card(dev):
+    """A reference-layout state dict on the host fills a WiderResNet16 on
+    the card: the tensors stay on the card and equal the state dict's."""
+    from pytorch_toolbelt_tpu_torch.zoo import port_torch_state_dict, wider_resnet16_encoder
+    from pytorch_toolbelt_tpu_torch.zoo.porting import wider_resnet_mapping
+
+    model = wider_resnet16_encoder().to(dev)
+    mapping = wider_resnet_mapping((1, 1, 1, 1, 1, 1))
+    gen = torch.Generator().manual_seed(3)
+    reference = {"mod1.conv1.weight": torch.randn(64, 3, 3, 3, generator=gen),
+                 "mod2.block1.bn1.bn.running_var": torch.rand(64, generator=gen) + 0.5,
+                 "mod7.block1.convs.conv3.weight": torch.randn(4096, 2048, 1, 1, generator=gen)}
+    port_torch_state_dict(model, reference, mapping, strict=False)
+    assert model.mod1_conv1.weight.is_cuda
+    torch.testing.assert_close(model.mod1_conv1.weight.cpu(), reference["mod1.conv1.weight"], rtol=0, atol=0)
+    torch.testing.assert_close(model.mod2_block1.bn1.running_var.cpu(), reference["mod2.block1.bn1.bn.running_var"],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(model.mod7_block1.conv3.weight.cpu(), reference["mod7.block1.convs.conv3.weight"],
+                               rtol=0, atol=0)
