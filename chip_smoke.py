@@ -14,8 +14,8 @@ ResNet34-UNet through tiled d4 inference, pad -> d2 TTA -> unpad on one
 image, config 5's strip-sharded tiled inference under an nccl process
 group, an ensemble and 3D tiles, config 2 in int8 and the int8
 SEResNeXt50-FPN, training config 3's model at config 4's shape,
-DeepLabV3+ on a ResNet-50, SegFormer-B2 and HRNetV2-W48 through tiled d4
-inference -- and
+DeepLabV3+ on a ResNet-50, SegFormer-B2, HRNetV2-W48 and MaxViT-B + FPN
+through tiled d4 inference -- and
 holds each against an independent plain path.  Weights and
 data are random, made from a seed.
 
@@ -194,7 +194,15 @@ Phases, each printed on its own line:
      BasicBlocks, transitions, fuse layers, head); then InceptionV4,
      WiderResNet38-A2, XResNet50, Res2Net50, SK-ResNeXt50, DenseNet121,
      DPN92 and the HRNet-W48 encoder alone, timed as phase 19 times its
-     encoders; the phase's own seconds.
+     encoders; the phase's own seconds;
+ 21. MaxViT-B + FPN (``maxvit_base_encoder(layers=(1, 2, 3, 4))``,
+     ``FPNDecoder`` at 256 channels, ``ResizeHead``, 19 classes; eager,
+     bf16, channels_last; seeded weights, MBConvs' last BN cut) through
+     ``tiled_apply_d4_tta`` as in phase 20, with its multiply-adds and the
+     device time by kind (attention, LayerNorm, GELU, MBConv depthwise, the
+     FPN, K1); then MaxViT-T, NFNet-F0, TResNet-M, the Stacked Hourglass
+     (8 stacks, 256 features) and SqueezeNet 1.1 alone, timed as phase 19
+     times its encoders; the phase's own seconds.
 
 Device times are medians over five windows of CUDA events; each phase
 prints the spread (min-max) of its kernel's windows beside the median.
@@ -341,6 +349,17 @@ HRNET_KINDS = (("K1", r"grid_merge"), ("BatchNorm", r"batch_norm|bn_fw"), ("near
 # and the encoders of slice I at their published widths, timed as phase 19 times its own
 ENCODERS_20 = ("inception_v4_encoder", "wider_resnet38_a2_encoder", "xresnet50_encoder", "res2net50_encoder",
                "skresnext50_encoder", "densenet121_encoder", "dpn92_encoder", "hrnet48_encoder")
+# Phase 21: MaxViT-B (arXiv:2204.01697 table 1: stem 64, stages 96/192/384/768 of 2/6/14/2 blocks, heads
+# 3/6/12/24, partition 8) on its four stages + FPNDecoder(256) + ResizeHead(19)
+MAXVIT_FPN = 256
+MAXVIT_SIZE, MAXVIT_CHECK_SIZE = 5000, 2048
+# phase 21's device time: kinds told by kernel name first, then by the labelled module whose range holds the kernel
+MAXVIT_KINDS = (("K1", r"grid_merge"), ("LayerNorm", r"layer_norm"), ("GELU", r"gelu|Gelu"),
+                ("attention (SDPA)", r"flash|fmha|attention|softmax"), ("BatchNorm", r"batch_norm|bn_fw"),
+                ("bilinear upsample", r"upsample"), ("cat", r"CatArray"))
+# and the encoders of slice J at their published widths, timed as phase 19 times its own
+ENCODERS_21 = ("maxvit_tiny_encoder", "nfnet_f0_encoder", "tresnet_m_encoder", "StackedHGEncoder",
+               "squeezenet_encoder")
 # and for phase 14's (the fused UNet-32 of config 5)
 CONFIG5_KINDS = (("K1", r"grid_merge"), ("K2", r"conv3x3"), ("bilinear upsample", r"upsample"), ("cat", r"CatArray"),
                  ("max pooling", r"max_pool"))
@@ -3245,6 +3264,137 @@ def phase_hrnet(dev, smi):
     return launches
 
 
+def _scale_slice_j(model):
+    """Seeding for the encoders of slice J, so that a deep seeded encoder's
+    activations stay within a few hundred: MBConv's last BN as
+    ``_scale_block_outputs`` cuts it and the transformer blocks' attention
+    and MLP output projections cut by RESIDUAL_BN_SCALE (MaxViT; MaxViT-B +
+    FPN's logits reach ~430 on a 128^2 CPU run without the latter, and its
+    bf16 error 4.7% of max); NFNet's ``gain`` near one and ``skip_gain`` of
+    0.5 + 0.1 N(0, 1), where ``seed_weights`` leaves both at 0.1 N(0, 1)
+    (flax initializes them to one and zero, which would leave the residual
+    branches out); TResNet's last BN of each residual branch and the
+    Hourglass blocks' last conv cut by RESIDUAL_BN_SCALE; and, since each
+    hourglass level adds its skip branch to its upsampled branch (x2 a
+    level), each stack's feature BN cut by 2^-depth and the merge convs by
+    RESIDUAL_BN_SCALE (the Stacked Hourglass's last map reaches ~6e8
+    without)."""
+    from pytorch_toolbelt_tpu_torch.zoo import (HGBlock, HGResidualBlock, MaxViTBlock, NFBlock, StackedHGEncoder,
+                                               TResNetBasicBlock, TResNetBottleneck, WSConv)
+
+    _scale_block_outputs(model)
+    gen = torch.Generator().manual_seed(SEED + 210)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MaxViTBlock):
+                for t in (m.block_attention, m.grid_attention):
+                    t.attn.proj.weight.mul_(RESIDUAL_BN_SCALE)
+                    t.fc2.weight.mul_(RESIDUAL_BN_SCALE)
+            elif isinstance(m, StackedHGEncoder):
+                depth, hourglass = 1, m.hourglasses[0]
+                while isinstance(hourglass.low2, HGBlock):
+                    depth, hourglass = depth + 1, hourglass.low2
+                for head in m.heads:
+                    head.bn.weight.mul_(2.0**-depth)
+                for merge in m.merges:
+                    merge.weight.mul_(RESIDUAL_BN_SCALE)
+            elif isinstance(m, WSConv):
+                m.gain.copy_(1.0 + 0.1 * torch.randn(m.gain.shape, generator=gen))
+            elif isinstance(m, NFBlock):
+                m.skip_gain.copy_(0.5 + 0.1 * torch.randn((), generator=gen))
+            elif isinstance(m, TResNetBasicBlock):
+                m.bn2.weight.mul_(RESIDUAL_BN_SCALE)
+            elif isinstance(m, TResNetBottleneck):
+                m.bn3.weight.mul_(RESIDUAL_BN_SCALE)
+            elif isinstance(m, HGResidualBlock):
+                m.conv3.weight.mul_(RESIDUAL_BN_SCALE)
+    return model
+
+
+def maxvit_b_fpn(dev):
+    """MaxViT-B at its published width on its four stages
+    (``maxvit_base_encoder(layers=(1, 2, 3, 4))``), ``FPNDecoder(spec, 256)``,
+    ``ResizeHead(19)``; seeded weights (``seed_linear_weights``, then
+    ``_scale_slice_j``).  Returns the fp32 and the bf16 model, both
+    channels_last."""
+    import copy
+
+    from pytorch_toolbelt_tpu_torch.zoo import EncoderDecoderModel, FPNDecoder, ResizeHead, maxvit_base_encoder
+
+    encoder = maxvit_base_encoder(layers=(1, 2, 3, 4))
+    decoder = FPNDecoder(encoder.get_output_spec(), MAXVIT_FPN)
+    model = EncoderDecoderModel(encoder, decoder, ResizeHead(decoder.get_output_spec(), num_classes=CLASSES))
+    model = _scale_slice_j(seed_linear_weights(model, SEED + 21))
+    model = model.eval().to(dev, memory_format=torch.channels_last)
+    return model, copy.deepcopy(model).to(torch.bfloat16)
+
+
+def _maxvit_labels(model) -> dict:
+    """{module: kind} of the modules whose kernels phase 21's profile tells
+    apart: the stem, each MBConv (its depthwise 3x3 apart), the attention
+    (SDPA, outside its projections), its qkv and output projections, the
+    MLPs' GEMMs, the window partition and padding copies (in the block
+    itself), the FPN and the head."""
+    from pytorch_toolbelt_tpu_torch.zoo import MaxViTBlock
+
+    encoder = model.encoder
+    labels = {encoder.stem: "stem", encoder.stem_conv: "stem"}
+    for m in encoder.modules():
+        if isinstance(m, MaxViTBlock):
+            labels[m] = "window partition, padding and residual copies"
+            labels[m.mbconv] = "MBConv 1x1 convs, SE and BN"
+            labels[m.mbconv.depthwise] = "MBConv depthwise 3x3"
+            if m.shortcut is not None:
+                labels[m.shortcut] = "MBConv 1x1 convs, SE and BN"
+            for t in (m.block_attention, m.grid_attention):
+                labels[t.attn] = "attention (SDPA)"
+                labels.update({t.attn.qkv: "attention projections", t.attn.proj: "attention projections",
+                               t.fc1: "MLP GEMMs", t.fc2: "MLP GEMMs"})
+    labels[model.decoder] = "FPN"
+    labels[model.head] = "head"
+    return labels
+
+
+@torch.no_grad()
+def phase_maxvit(dev, smi):
+    """MaxViT-B + FPN through tiled d4 inference: at 2048^2 in both modes
+    against the plain path on the fp32 model; K1 alone at the 5000^2 K = 19
+    shape; one 5000^2 distributed run for its wall time, peak memory and
+    K1's route; its multiply-adds (FlopCounterMode on one view); under
+    torch.profiler the idle share, device time by kind and top kernels; then
+    the encoders of slice J at their published widths.  Returns K1's
+    launches and launches by route in the main path's runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer
+
+    t0 = time.perf_counter()
+    model, model_bf16 = maxvit_b_fpn(dev)
+    forward = image_forward(model_bf16, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    launches = _tiled_d4_check("[21]", "MaxViT-B + FPN", model, forward, MAXVIT_CHECK_SIZE, gen)
+    del model
+    run, wall = _tiled_d4_at_size("[21]", "MaxViT-B + FPN", forward, MAXVIT_SIZE, gen, smi, launches)
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        forward(torch.zeros(1, 3, TILE, TILE, device=dev))
+    macs = counter.get_total_flops() / 2
+    slicer = ImageSlicer((MAXVIT_SIZE, MAXVIT_SIZE), TILE, STEP, weight="pyramid")
+    views = 2 * len(slicer.crops)  # distributed mode: two views of each tile
+    log(f"[21] MaxViT-B + FPN multiply-adds (FlopCounterMode: convs, GEMMs, attention): {macs / 1e9:.1f} G per "
+        f"{TILE}^2 view, {views} views per {MAXVIT_SIZE}^2 distributed run = {macs * views / 1e12:.1f} T, "
+        f"{2 * macs * views / wall / 1e12:.1f} TFLOP/s over the run's wall ({2 * macs * views / wall / BF16_PEAK:.1%} "
+        f"of the bf16 peak) ({smi})")
+    _log_profile_by_kind(f"[21] profiled {MAXVIT_SIZE}^2 distributed run", run, MAXVIT_KINDS, smi, top=12,
+                         labels=_maxvit_labels(model_bf16))
+    del model_bf16, run
+    torch.cuda.empty_cache()
+    _encoders_at_width(dev, smi, "[21]", ENCODERS_21, SEED + 211, _scale_slice_j)
+    log(f"[21] phase 21: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3317,6 +3467,11 @@ def main() -> int:
     hrnet = phase_hrnet(dev, smi)
     launches["grid_merge"] += hrnet["grid_merge"]
     for route, n in hrnet["grid_merge_by_route"].items():
+        launches["grid_merge_by_route"][route] += n
+    torch.cuda.empty_cache()
+    maxvit = phase_maxvit(dev, smi)
+    launches["grid_merge"] += maxvit["grid_merge"]
+    for route, n in maxvit["grid_merge_by_route"].items():
         launches["grid_merge_by_route"][route] += n
 
     kernels = [

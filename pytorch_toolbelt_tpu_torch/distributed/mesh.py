@@ -13,9 +13,11 @@ the same dims, the sharding helpers give DTensor placements with their mesh
 
 * under ``jit`` over a batch-sharded mesh, XLA computes BatchNorm statistics
   and the loss over the global batch; DDP computes both per rank.
-  :func:`data_parallel` converts BatchNorm to ``SyncBatchNorm`` when the world
-  is larger than 1; a loss that does not decompose over ranks (Lovasz with
-  ``per_image=False``, batch-reduced dice) is still computed per rank;
+  :func:`data_parallel` converts every batch norm to the port's
+  ``SyncBatchNorm2d`` (``global_batch.py``) when the world is larger than 1,
+  and a loss that does not decompose over ranks (Lovasz with
+  ``per_image=False``, batch-reduced dice) runs on the logits and targets of
+  ``global_batch.gather_batch``, as the example's does;
 * XLA inserts the halo exchanges of convolutions over a ``spatial`` axis,
   torch does not, so ``spatial_parallel`` must be 1.
 """
@@ -90,7 +92,7 @@ def make_mesh(data_parallel: Optional[int] = None, spatial_parallel: int = 1, de
     if spatial_parallel != 1:
         raise NotImplementedError(
             "spatial_parallel > 1 needs a halo exchange around every convolution, which torch does not insert "
-            "(ROADMAP.md, queue 1 item 3)"
+            "(ROADMAP.md, queue 1: slice D on four GPUs)"
         )
     n = get_world_size()
     if data_parallel is None:
@@ -146,14 +148,16 @@ def local_part(x: torch.Tensor, sharding: MeshSharding) -> torch.Tensor:
 
 def data_parallel(model: nn.Module, mesh=None, **ddp_kwargs) -> nn.Module:
     """Wrap ``model`` in ``DistributedDataParallel`` over the mesh's ``data``
-    dim (the whole group without a mesh); BatchNorms become
-    ``SyncBatchNorm`` when the world is larger than 1.  Without an
-    initialized group the model is returned as it is."""
+    dim (the whole group without a mesh); batch norms become the port's
+    ``SyncBatchNorm2d`` over that group when it holds more than one process.
+    Without an initialized group the model is returned as it is."""
+    from .global_batch import convert_sync_batchnorm
+
     if not _initialized():
         return model
-    if get_world_size() > 1:
-        model = nn.SyncBatchNorm.convert_sync_batchnorm(model)
+    group = mesh.get_group("data") if mesh is not None else None
+    if dist.get_world_size(group) > 1:
+        model = convert_sync_batchnorm(model, group)
     first = next(model.parameters(), None)
     device_ids = [first.device] if first is not None and first.is_cuda else None
-    group = mesh.get_group("data") if mesh is not None else None
     return nn.parallel.DistributedDataParallel(model, device_ids=device_ids, process_group=group, **ddp_kwargs)

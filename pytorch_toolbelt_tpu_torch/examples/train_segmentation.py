@@ -4,7 +4,10 @@
 Trains the UNet on synthetic blobs with dice + focal, param groups without
 weight decay on biases and norms, the mesh's data parallelism (DDP once a
 process group is initialized) and batches prefetched to the card; then runs
-tiled d4-TTA inference on a larger synthetic image.  As in the JAX example,
+tiled d4-TTA inference on a larger synthetic image.  Past one process, the
+BatchNorm statistics (``SyncBatchNorm2d``) and the loss
+(:func:`global_batch_loss`) run over the global batch, as under the JAX
+example's ``jit``.  As in the JAX example,
 the optimizer's learning rate stays 1e-3 and the warmup-cosine schedule is
 only printed.
 
@@ -19,14 +22,14 @@ import torch
 
 from .. import losses as L
 from ..datasets import prefetch_to_device
-from ..distributed import batch_sharding, data_parallel, make_mesh
+from ..distributed import batch_sharding, data_parallel, gather_batch, make_mesh
 from ..inference import tiled_apply
 from ..inference.tta import d4_image2mask
 from ..optimization import flat_cosine_annealing_schedule, gradual_warmup_schedule, make_optimizer
 from ..utils import count_parameters, get_random_name, set_manual_seed
 from ..zoo import UNetSegmentationModel
 
-__all__ = ["main", "synthetic_batch"]
+__all__ = ["global_batch_loss", "main", "synthetic_batch"]
 
 
 def synthetic_batch(rng: np.random.RandomState, batch: int, size: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -42,6 +45,16 @@ def synthetic_batch(rng: np.random.RandomState, batch: int, size: int) -> Tuple[
         masks[i] = disk
         images[i] = disk[..., None] * 0.7 + rng.rand(size, size, 3) * 0.3
     return np.ascontiguousarray(images.transpose(0, 3, 1, 2)), masks
+
+
+def global_batch_loss(loss_fn, logits: torch.Tensor, targets: torch.Tensor, group=None) -> torch.Tensor:
+    """``loss_fn`` on every rank's logits and targets gathered over
+    ``group`` (the default group if None, which is the mesh's data group:
+    ``make_mesh`` keeps ``spatial_parallel`` at 1) by ``gather_batch``: the
+    global batch's loss on every rank, whose gradients DDP's mean over ranks
+    turns into the global loss's.  Without a group of more than one
+    process, ``loss_fn(logits, targets)``."""
+    return loss_fn(gather_batch(logits, group), gather_batch(targets, group))
 
 
 def _batches(rng: np.random.RandomState, steps: int, batch: int, size: int) -> Iterator:
@@ -88,7 +101,7 @@ def main(steps: int = 20, batch: int = 8, size: int = 128, device="cuda"):
     batches = prefetch_to_device(_batches(np.random.RandomState(1), steps, batch, size),
                                  sharding=batch_sharding(mesh, 4), device=device)
     for i, (x, y) in enumerate(batches):
-        loss = loss_fn(net(x), y)
+        loss = global_batch_loss(loss_fn, net(x), y)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         optimizer.step()

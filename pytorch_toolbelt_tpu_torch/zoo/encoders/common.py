@@ -41,21 +41,28 @@ def _remat(block: nn.Module, generator: Optional[torch.Generator], *args) -> Any
     (``torch.utils.checkpoint``), as flax's ``nn.remat`` does.  The
     recomputation replays the drop-path masks that the forward drew from
     ``generator`` (checkpoint itself restores only torch's default
-    generators) and leaves ``generator`` where the forward left it."""
-    if generator is None:
-        return checkpoint(block, *args, use_reentrant=False)
-    start, calls = generator.get_state(), []
+    generators) and leaves ``generator`` where the forward left it; it
+    leaves the block's buffers (BatchNorm's running statistics) as the
+    forward left them, so they are updated once, as flax updates them."""
+    start = None if generator is None else generator.get_state()
+    calls = []
 
     def run(*inputs):
         if not calls:
             calls.append(True)
             return block(*inputs)
-        now = generator.get_state()
-        generator.set_state(start)
+        buffers = [(b, b.clone()) for b in block.buffers()]
+        now = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(start)
         try:
             return block(*inputs)
         finally:
-            generator.set_state(now)
+            if generator is not None:
+                generator.set_state(now)
+            with torch.no_grad():
+                for b, kept in buffers:
+                    b.copy_(kept)
 
     return checkpoint(run, *args, use_reentrant=False)
 

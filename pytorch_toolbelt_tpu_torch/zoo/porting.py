@@ -17,6 +17,8 @@ numpy arrays, so the port needs no jax, and fills the matching torch module:
   ``BatchNorm1d`` for flax's BatchNorm on ``[B, F]``); GroupNorm and
   LayerNorm ``scale/bias``; PReLU ``alpha`` -> ``weight``;
 * ``DropBlockScheduled``'s ``state`` variable ``step`` -> its ``step`` buffer;
+* NFNet's ``WSConv``: ``kernel`` HWIO -> OIHW, ``bias`` and ``gain`` copied
+  (the standardization runs at every call, so the raw kernel is stored);
 * a module's own parameters (``nn.Parameter`` attributes, e.g. BiFPN's
   ``w1``/``w2``, GeM's ``p``, the pools' ``weights``) are flax params of
   the same name and shape (Swin's ``relative_position_bias``, SRM's
@@ -64,6 +66,7 @@ from ..nn.dropblock import DropBlockScheduled
 from .decoders.fpn import FPNDecoder
 from .encoders.common import GenericEncoder
 from .encoders.mobilenet import _V2_CONFIG
+from .encoders.nfnet import WSConv
 from .encoders.senet import SENetBottleneck, SENetEncoder, SEModule
 from .encoders.wide_resnet import _MODULE_CHANNELS, IdentityResidualBlock, WiderResNetEncoder
 from .heads.classification import FullyConnectedClassificationHead
@@ -195,6 +198,11 @@ def _leaves(module: nn.Module, path: Tuple[str, ...]) -> Iterator[_Leaf]:
         return
     if isinstance(module, DropBlockScheduled):
         yield "state", path + ("step",), module.step, _same
+        return
+    if isinstance(module, WSConv):
+        yield "params", path + ("kernel",), module.weight, _hwio_to_oihw
+        yield "params", path + ("bias",), module.bias, _same
+        yield "params", path + ("gain",), module.gain, _same
         return
     if isinstance(module, nn.PReLU):
         yield "params", path + ("alpha",), module.weight, _same

@@ -1264,3 +1264,87 @@ def test_port_torch_state_dict_fills_a_model_on_the_card(dev):
                                rtol=0, atol=0)
     torch.testing.assert_close(model.mod7_block1.conv3.weight.cpu(), reference["mod7.block1.convs.conv3.weight"],
                                rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The encoders of slice J, a narrow MaxViT + FPN, and the sync BatchNorm: on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _slice_j_cases():
+    from pytorch_toolbelt_tpu_torch import zoo
+
+    maxvit = dict(stem_channels=8, stage_channels=(16, 16, 24, 32), stage_blocks=(1, 2, 1, 1), num_heads=(2, 2, 3, 4))
+
+    def maxvit_fpn():
+        encoder = zoo.MaxViTEncoder(**maxvit, layers=(1, 2, 3, 4))
+        decoder = zoo.FPNDecoder(encoder.get_output_spec(), 16)
+        return zoo.EncoderDecoderModel(encoder, decoder, zoo.ResizeHead(decoder.get_output_spec(), 3))
+
+    def nfnet():
+        encoder = zoo.NFNetEncoder(stage_blocks=(1, 2, 1, 1), stage_channels=(16, 32, 32, 48))
+        with torch.no_grad():
+            for m in encoder.modules():
+                if isinstance(m, zoo.NFBlock):
+                    m.skip_gain.fill_(0.7)  # flax's zero would leave the residual branches out
+        return encoder
+
+    return {  # name: (module factory, NCHW input shape)
+        "maxvit_padded": (lambda: zoo.MaxViTEncoder(**maxvit), (2, 3, 160, 160)),
+        "maxvit_fpn": (maxvit_fpn, (2, 3, 128, 128)),
+        "nfnet": (nfnet, (2, 3, 64, 64)),
+        "tresnet_odd": (lambda: zoo.TResNetEncoder(width_factor=0.25, stage_blocks=(1, 2, 1, 1)), (2, 3, 68, 68)),
+        "stacked_hourglass": (lambda: zoo.StackedHGEncoder(stack_level=2, depth=2, features=16), (2, 3, 64, 60)),
+        "squeezenet": (lambda: zoo.SqueezeNetEncoder(), (2, 3, 66, 66)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_slice_j_cases()))
+def test_slice_j_encoder_on_cuda_matches_cpu(dev, name):
+    """Each slice-J encoder family (MaxViT on a map that pads, NFNet with a
+    non-zero ``skip_gain``, TResNet on odd stride-4 maps) and a narrow
+    MaxViT + FPN at a small size, in eval mode: on the card it returns
+    tensors on the card that agree with the same module on the CPU in fp32
+    with TF32 off (1e-4 * max|ref|)."""
+    torch.manual_seed(0)
+    factory, shape = _slice_j_cases()[name]
+    module = factory().eval()
+    x = torch.randn(*shape, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = module(x)
+        got = module.to(dev)(x.to(dev))
+    assert _same_on_card(got, ref)
+
+
+def test_stacked_supervised_hourglass_on_cuda_matches_cpu(dev):
+    from pytorch_toolbelt_tpu_torch.zoo import StackedSupervisedHGEncoder
+
+    torch.manual_seed(0)
+    module = StackedSupervisedHGEncoder(supervision_channels=2, stack_level=3, depth=2, features=16).eval()
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        features, masks = module(x)
+        got_features, got_masks = module.to(dev)(x.to(dev))
+    assert _same_on_card(got_features, features) and _same_on_card(got_masks, masks)
+
+
+def test_sync_batchnorm_in_a_world_of_one_on_cuda_matches_cpu(tmp_path, dev):
+    """``SyncBatchNorm2d`` under an nccl group of one, in train mode (its
+    all-reduces run on nccl): outputs, running statistics and input
+    gradients on the card against the port's ``BatchNorm2d`` on the CPU."""
+    from pytorch_toolbelt_tpu_torch.distributed import DistributedGuard, SyncBatchNorm2d
+    from pytorch_toolbelt_tpu_torch.nn import BatchNorm2d
+
+    gen = torch.Generator().manual_seed(2)
+    x, w = torch.randn(4, 6, 9, 7, generator=gen) * 2 + 1, torch.randn(4, 6, 9, 7, generator=gen)
+    plain = BatchNorm2d(6, momentum=0.1).train()
+    xc = x.clone().requires_grad_()
+    ref = plain(xc)
+    (ref * w).sum().backward()
+    with DistributedGuard(f"file://{tmp_path}/store", world_size=1, rank=0, backend="nccl"):
+        sync = SyncBatchNorm2d(6, momentum=0.1).to(dev).train()
+        xg = x.to(dev).requires_grad_()
+        got = sync(xg)
+        (got * w.to(dev)).sum().backward()
+    assert got.is_cuda and _same_on_card(got.detach(), ref.detach()) and _same_on_card(xg.grad, xc.grad)
+    torch.testing.assert_close(sync.running_var.cpu(), plain.running_var, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(sync.running_mean.cpu(), plain.running_mean, rtol=1e-5, atol=1e-6)
