@@ -24,8 +24,9 @@ Phases, each printed on its own line:
      kernel's registers, static shared memory and spills; K4's pass kernel's
      tile, dynamic shared memory and resident blocks per SM; K1's cell-route
      block (threads, ring stages, dynamic shared memory, blocks per SM); the
-     HGMMA, UTMALDG and UBLKCP instructions in the wgmma conv kernels' SASS
-     and the UTMALDG, LDG, LDS and STG in K1's cell kernels' (``cuobjdump``);
+     HGMMA, UTMALDG and UBLKCP instructions in the wgmma conv kernels' SASS,
+     the IGMMA, UTMALDG, UTMASTG and UBLKCP in Q1's wgmma kernels' and the
+     UTMALDG, LDG, LDS and STG in K1's cell kernels' (``cuobjdump``);
   2. K2 (conv3x3) against ``conv3x3_reference`` at every conv shape of
      UNet-32 on 512^2 tiles, through the route the UNet takes and through
      the WMMA route; at the main path's batch (64 tiles x 2 views), per
@@ -128,8 +129,11 @@ Phases, each printed on its own line:
      for bit against ``qconv2d_reference`` / ``q_upsample_reference``, each
      timed beside its bound (bytes over 3.35 TB/s or int8 operations over
      1979 TOP/s), its plain version, ``torch._int_mm`` on the im2col and
-     the bf16 K2 at the shape; config 2 in int8 (5000^2, distributed, batch
-     64, after a warm-up): wall, MP/s, peak memory, launches, the output
+     the bf16 K2 at the shape, with its route (every 3x3 stride-1 pad-1
+     groups-1 call on a wgmma route, else the phase fails); config 2 in int8
+     (5000^2, distributed, batch 64, after a warm-up): wall, MP/s, peak
+     memory, launches (by route: the checked run's wgmma calls, no other
+     route), the output
      against the bf16 path's, then bf16 and int8 timed in turns and both
      profiled by kind; the int8 SEResNeXt50-FPN(128) with 19 classes
      (``quantize_encoder_decoder_inference``) at 1024^2: Q1 and Q2 at each
@@ -286,7 +290,7 @@ INT8_SIZE, INT8_CAL_IMAGES = 1024, 2
 # measures ~0.105 on the calibration tiles, with the integer path bit-equal to the JAX package's given its ranges
 # (tests/test_torch_quantized.py).  A broken integer path lands near 1.
 INT8_PTQ_RMS = 0.15
-INT8_KINDS = (("Q1 (int8 conv)", r"qconv_kernel"), ("Q2 (int8 upsample)", r"q_upsample_kernel"), ("K1", r"grid_merge"),
+INT8_KINDS = (("Q1 (int8 conv)", r"qconv_kernel|qconv_wgmma_kernel"), ("Q2 (int8 upsample)", r"q_upsample_kernel"), ("K1", r"grid_merge"),
               ("cat", r"CatArray"), ("max pooling (torch.maximum)", r"maximum|max_"))
 # Phase 17: training (slice F).  Config 3's model (SEResNeXt50-FPN(128), 19 classes) trained at config 4's shape:
 # batches of 8 x 3 x 1024^2, so the logits are config 4's [8, 19, 1024, 1024]; CE-focal + 0.5 Lovasz-Softmax
@@ -486,11 +490,14 @@ def phase_build():
         f"shared memory, {info[3]} blocks resident per SM")
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
     if not Path(cuobjdump).is_file():
-        log("[1] cuobjdump not found: the conv and grid-merge kernels' SASS is not inspected")
+        log("[1] cuobjdump not found: the conv, Q1 and grid-merge kernels' SASS is not inspected")
     else:
         sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, timeout=300).stdout
         counts = _sass_counts(sass, "conv3x3_wgmma_kernel", ("HGMMA", "UTMALDG", "UBLKCP"))
         log(f"[1] SASS of the {counts.pop('functions')} wgmma conv kernels (cuobjdump -sass): "
+            + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        counts = _sass_counts(sass, "qconv_wgmma_kernel", ("IGMMA", "UTMALDG", "UTMASTG", "UBLKCP"))
+        log(f"[1] SASS of the {counts.pop('functions')} Q1 wgmma kernels (cuobjdump -sass): "
             + ", ".join(f"{op} {n}" for op, n in counts.items()))
         counts = _sass_counts(sass, "grid_merge_cell_kernel", ("UTMALDG", "LDG", "LDS", "STG"))
         log(f"[1] SASS of the {counts.pop('functions')} grid_merge_cell_kernel instances (cuobjdump -sass): "
@@ -2135,7 +2142,8 @@ def _check_q1(what: str, timed: bool, with_k2: bool = False):
     ``qconv2d_reference`` bit for bit on the call's own inputs and, if
     ``timed``, Q1's time beside its bound, its plain version,
     ``torch._int_mm`` and (with_k2: the UNet's 3x3 stride-1 shapes) the bf16
-    K2 at the same shape."""
+    K2 at the same shape.  A 3x3 stride-1 pad-(1, 1, 1, 1) groups-1 call
+    that took an ``mma_*`` route fails it."""
     from pytorch_toolbelt_tpu_torch.ops import conv3x3, pack_conv3x3_weights, qconv2d, qconv2d_reference
 
     def check(args, kwargs):
@@ -2154,7 +2162,10 @@ def _check_q1(what: str, timed: bool, with_k2: bool = False):
         if got.dtype != want.dtype or got.shape != want.shape or err != 0:
             raise AssertionError(f"{what}: qconv2d {shape} disagrees with qconv2d_reference (max |err| {err})")
         del want
-        record = {"max_abs_err": err, "route": route, "shape": shape}
+        wgmma_shape = (kh, kw, stride, weight.groups) == (3, 3, 1, 1) and tuple(padding) == (1, 1, 1, 1)
+        if wgmma_shape and not route.endswith("wgmma"):
+            raise AssertionError(f"{what}: qconv2d {shape} took the route {route}, not a wgmma route")
+        record = {"max_abs_err": err, "route": route, "shape": shape, "wgmma_shape": wgmma_shape}
         if not timed:
             return record
         ho, wo = got.shape[2:]
@@ -2234,6 +2245,21 @@ def _q1_totals(seen: dict, what: str) -> dict:
             f"{r['bound'] / ms:.1%} of the kernel; plain version (in batch chunks of {INT8_PLAIN_CHUNK}) "
             f"{r['plain_ms']:.3f} ms; torch._int_mm on the im2col (im2col not timed) {r['lib']}{k2}")
     return total
+
+
+def _check_q1_routes(seen: dict, by_route: dict, what: str) -> None:
+    """A counted run's Q1 launches by route against the checked run's calls:
+    the 3x3 stride-1 pad-1 groups-1 calls on the wgmma routes, the others on
+    ``mma_*``."""
+    wgmma = sum(n for r, n in seen.values() if r["wgmma_shape"])
+    mma = sum(n for r, n in seen.values() if not r["wgmma_shape"])
+    got = {"wgmma": by_route["tma_wgmma"] + by_route["ld_wgmma"],
+           "mma": sum(n for route, n in by_route.items() if route.startswith("mma"))}
+    if got != {"wgmma": wgmma, "mma": mma}:
+        raise AssertionError(f"{what}: Q1 launched {by_route}, the checked run made {wgmma} calls of wgmma shapes "
+                             f"and {mma} others")
+    log(f"[16] qconv2d {what}: {wgmma} calls of 3x3 stride-1 pad-1 groups-1 shapes, all on the wgmma routes "
+        f"({by_route['tma_wgmma']} tma_wgmma, {by_route['ld_wgmma']} ld_wgmma); {mma} others on mma_*")
 
 
 def _q2_totals(seen: dict) -> dict:
@@ -2341,7 +2367,7 @@ def phase_int8(dev, smi, model, fused, t_start):
     torch.cuda.empty_cache()
     q1 = _q1_totals(convs, "UNet-32")
     q2 = _q2_totals(ups)
-    del convs, ups
+    del ups
     log(f"[16] qconv2d UNet-32, the {q1['calls']} convs of the 5000^2 int8 run ({q1['shapes']} distinct shapes), "
         f"each shape's time times its calls: kernel {q1['ms']:.2f} ms, bound {q1['bytes'] + q1['operations']:.2f} ms "
         f"(bytes {q1['bytes']:.2f}, operations {q1['operations']:.2f}), plain version {q1['plain_ms']:.2f} ms, "
@@ -2364,6 +2390,8 @@ def phase_int8(dev, smi, model, fused, t_start):
     if launches["qconv2d"] != q1["calls"] or launches["q_upsample"] != q2["calls"]:
         raise AssertionError(f"the counted 5000^2 int8 run launched {launches}, the checked run made "
                              f"{q1['calls']} qconv2d and {q2['calls']} q_upsample calls")
+    _check_q1_routes(convs, launches["qconv2d_by_route"], "UNet-32 5000^2 int8 run")
+    del convs
     with torch.no_grad():
         out_bf16 = run(fused).float()
     rms = _rel_rms(out, out_bf16)
@@ -2411,11 +2439,12 @@ def phase_int8(dev, smi, model, fused, t_start):
     torch.cuda.synchronize()
     q1_3 = _q1_totals(convs, "SEResNeXt50-FPN")
     q2_3 = _q2_totals(ups)
-    del convs, ups
     _reset_int8_counts()
     got = q3(x)
     torch.cuda.synchronize()
     counts3 = _int8_counts()
+    _check_q1_routes(convs, counts3["qconv2d_by_route"], "SEResNeXt50-FPN forward")
+    del convs, ups
     with torch.no_grad():
         ref = model3(x)
     rms = _rel_rms(got, ref)
@@ -2452,7 +2481,8 @@ def phase_int8(dev, smi, model, fused, t_start):
     torch.cuda.empty_cache()
     max_err = max(q1["max_abs_err"], q1_3["max_abs_err"])
     kernels = [
-        {"name": "qconv2d", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/qconv.cu",
+        {"name": "qconv2d", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/qconv_wgmma.cu",
+         "mma_source": "pytorch_toolbelt_tpu_torch/csrc/qconv.cu",
          "replaces": "pytorch_toolbelt_tpu/zoo/quantized_unet.py:140", "launches": launches["qconv2d"],
          "max_abs_err": max_err, "ms": q1["ms"], "plain_ms": q1["plain_ms"],
          "bound_ms": q1["bytes"] + q1["operations"],

@@ -18,7 +18,8 @@
 // pixels x BN output channels of one group.  For every 32-byte K chunk it
 // gathers the [128 x 32] im2col slice of x into registers (16-byte loads when
 // ci_pg and C are multiples of 16, 4-byte loads when multiples of 4, else byte
-// by byte: the route), while the tensor cores work on the previous chunk from
+// by byte: the routes mma_v16, mma_v4, mma_v1), while the tensor cores work on
+// the previous chunk from
 // shared memory (two buffers); the products are
 // mma.sync.m16n8k32.row.col.s32.s8.s8.s32.  The epilogue applies, in int32
 // with two's-complement wraparound as XLA does:
@@ -31,10 +32,12 @@
 // Bound on the card: the larger of the bytes (x, the weights and y once) over
 // 3.35 TB/s and the operations over the int8 tensor cores' 1979 TOP/s; the
 // narrow 512^2 layers of the UNet are byte-bound, the wide ones operation-bound
-// (chip_smoke.py phase 16 prints which, per shape).  This first kernel
-// re-reads each input pixel from L2 for every tap and every N block and runs
-// mma.sync, which reaches a fraction of the tensor cores' rate; `wgmma` with
-// TMA halo loads is later work.
+// (chip_smoke.py phase 16 prints which, per shape).  This kernel re-reads
+// each input pixel from L2 for every tap and every N block and runs mma.sync,
+// which reaches a fraction of the tensor cores' rate.  The 3x3 stride-1 pad-1
+// groups-1 convs (every conv of the int8 UNet, the FPN's 3x3 convs) take the
+// wgmma kernel of qconv_wgmma.cu instead (routes tma_wgmma and ld_wgmma);
+// ops/quantized.py `_conv_route` picks the route and ptt_qconv2d checks it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -284,23 +287,37 @@ cudaError_t launch_bn(int vec, dim3 grid, cudaStream_t s, const int8_t* x, const
   return cudaGetLastError();
 }
 
-// The route (bytes per gather of x) a call takes: the one place the rule lives.
-int gather_width(int C, int ci_pg, uintptr_t x_addr) {
-  if (ci_pg % 16 == 0 && C % 16 == 0 && x_addr % 16 == 0) return 16;
-  if (ci_pg % 4 == 0 && C % 4 == 0 && x_addr % 4 == 0) return 4;
-  return 1;
+// Whether gathers of `vec` bytes (16, 4 or 1) fit the channels and x's alignment.
+bool gather_fits(int vec, int C, int ci_pg, uintptr_t x_addr) {
+  return vec == 1 || ((vec == 4 || vec == 16) && ci_pg % vec == 0 && C % vec == 0 && x_addr % vec == 0);
 }
+
+enum Route { MMA_V16 = 0, MMA_V4 = 1, MMA_V1 = 2, TMA_WGMMA = 3, LD_WGMMA = 4 };
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success); *route_out gets the
-// route's gather width in bytes (16, 4 or 1).
+// qconv_wgmma.cu: the wgmma routes.
+int qconv2d_wgmma(int device, const void* x, const void* w, const void* bias, const void* p0, const void* p1, void* y,
+                  int B, int H, int W, int cin, int cout, int nt, int mode, int relu, int tma, void* stream);
+
+// `route` is the one ops/quantized.py `_conv_route` picked (the Route codes);
+// a call that does not fit it is refused.  For the mma routes w is packed as
+// [groups, n_pad, k_pad] with N tile bn; for the wgmma routes (3x3, stride 1,
+// pads 1, groups 1) as [NB, KC, 9, bn, 128].  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int ptt_qconv2d(int device, const void* x, const void* w, const void* bias, const void* p0,
                            const void* p1, void* y, int B, int H, int W, int C, int Ho, int Wo, int cout,
                            int groups, int kh, int kw, int stride, int pad_top, int pad_left, int k_pad,
-                           int n_pad, int bn, int mode, int relu, int* route_out, void* stream) {
+                           int n_pad, int bn, int mode, int relu, int route, void* stream) {
+  if (route == TMA_WGMMA || route == LD_WGMMA) {
+    if (groups != 1 || kh != 3 || kw != 3 || stride != 1 || pad_top != 1 || pad_left != 1 || Ho != H || Wo != W)
+      return (int)cudaErrorInvalidValue;
+    return qconv2d_wgmma(device, x, w, bias, p0, p1, y, B, H, W, C, cout, bn, mode, relu, route == TMA_WGMMA,
+                         stream);
+  }
   const ptt::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return (int)guard.error();
+  if (route != MMA_V16 && route != MMA_V4 && route != MMA_V1) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || Ho <= 0 || Wo <= 0 || cout <= 0 || groups <= 0 || kh <= 0 ||
       kw <= 0 || stride <= 0 || C % groups != 0 || cout % groups != 0 || k_pad % BK != 0 || mode < 0 ||
       mode > 2 || (bn != 8 && bn != 16 && bn != 32 && bn != 64) || n_pad % bn != 0)
@@ -313,8 +330,8 @@ extern "C" int ptt_qconv2d(int device, const void* x, const void* w, const void*
   if (g.k_total > k_pad || g.co_pg > n_pad || (g.M + BM - 1) / BM > 0x7fffffffLL || n_pad / bn > 65535 ||
       groups > 65535)
     return (int)cudaErrorInvalidValue;
-  const int vec = gather_width(C, g.ci_pg, (uintptr_t)x);
-  *route_out = vec;
+  const int vec = route == MMA_V16 ? 16 : route == MMA_V4 ? 4 : 1;
+  if (!gather_fits(vec, C, g.ci_pg, (uintptr_t)x)) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((g.M + BM - 1) / BM), (unsigned)(n_pad / bn), (unsigned)groups);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const int8_t*>(x);

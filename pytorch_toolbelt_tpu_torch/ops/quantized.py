@@ -6,10 +6,13 @@ The JAX package runs both as XLA ops: ``lax.conv_general_dilated(...,
 preferred_element_type=int32)`` with an integer epilogue
 (``pytorch_toolbelt_tpu/zoo/quantized_unet.py:140``) and two int8 einsums
 against quantized interpolation matrices (``:175``).  torch has neither on
-CUDA, so the port brings hand-written kernels: ``csrc/qconv.cu`` (an
-``mma.sync`` s8 implicit GEMM with the epilogue fused) and
+CUDA, so the port brings hand-written kernels: Q1 has two, ``csrc/qconv_wgmma.cu``
+(a TMA-fed ``wgmma`` s8 implicit GEMM for the 3x3 stride-1 pad-1 groups-1
+convs, routes ``tma_wgmma`` and ``ld_wgmma``) and ``csrc/qconv.cu`` (an
+``mma.sync`` s8 implicit GEMM for every other shape, routes ``mma_v16``,
+``mma_v4``, ``mma_v1``), both with the epilogue fused; Q2 is
 ``csrc/q_upsample.cu`` (both interpolation passes of one output pixel from
-its four input pixels).
+its four input pixels).  :func:`_conv_route` picks Q1's route.
 
 Activations are NCHW tensors in the ``torch.channels_last`` memory format
 (their storage is NHWC), int8.  All integer arithmetic is int32 with two's
@@ -29,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv_kernels import _swizzle128
+from .conv_kernels import _tile_n as _wgmma_tile_n
 
 __all__ = [
     "QConvWeight",
@@ -44,7 +49,9 @@ _QMAX = 127
 _MUL_SHIFT = 23
 _EPILOGUES = ("acc", "shift", "mul")
 _K_STEP = 32  # K bytes per mma.m16n8k32 step: the packed K is padded to it per group
-_CONV_ROUTES = {16: "mma_v16", 4: "mma_v4", 1: "mma_v1"}  # bytes per gather of x
+# Q1's routes; the index is the code ptt_qconv2d takes
+_CONV_ROUTES = ("mma_v16", "mma_v4", "mma_v1", "tma_wgmma", "ld_wgmma")
+_WGMMA_CK = 128  # input channels per full K chunk of the wgmma routes: one 128-byte swizzle row
 _UPSAMPLE_ROUTES = {16: "v16", 4: "v4", 1: "v1"}  # channels per thread
 _CL = torch.channels_last
 
@@ -53,9 +60,10 @@ class QConvWeight(NamedTuple):
     """int8 conv weights as :func:`qconv2d` takes them."""
 
     weight: torch.Tensor  # [C_out, C_in / groups, kh, kw] int8 (OIHW), for the plain version
-    packed: torch.Tensor  # [groups, N_pad, K_pad] int8, for the kernel
+    packed: torch.Tensor  # [groups, N_pad, K_pad] int8, for the mma routes
     groups: int
-    tile_n: int  # output channels per block of the kernel
+    tile_n: int  # output channels per block of the mma routes
+    wgmma: Optional[torch.Tensor] = None  # [NB, KC, 9, NT, 128] int8 for the wgmma routes (3x3, groups 1 only)
 
 
 def _tile_n(co_pg: int) -> int:
@@ -80,7 +88,69 @@ def pack_qconv2d_weights(weight: torch.Tensor, groups: int = 1) -> QConvWeight:
     packed = torch.zeros(groups, -(-co_pg // tile_n) * tile_n, -(-k // _K_STEP) * _K_STEP, dtype=torch.int8,
                          device=weight.device)
     packed[:, :co_pg, :k] = weight.reshape(groups, co_pg, ci_pg, kh, kw).permute(0, 1, 3, 4, 2).reshape(groups, co_pg, k)
-    return QConvWeight(weight.contiguous(), packed.contiguous(), int(groups), tile_n)
+    wgmma = _pack_wgmma(weight) if (kh, kw, groups) == (3, 3, 1) else None
+    return QConvWeight(weight.contiguous(), packed.contiguous(), int(groups), tile_n, wgmma)
+
+
+def _wgmma_chunks(c_in: int):
+    """The K chunks of the wgmma routes as (first channel, width): 128
+    channels each, then a remainder r as one 128-channel chunk (r > 96),
+    64 + 32 (r > 64), 64 (r > 32) or 32, as ``csrc/qconv_wgmma.cu``
+    ``chunks_of`` cuts it."""
+    full, r = divmod(c_in, _WGMMA_CK)
+    if r > 96:
+        full, r = full + 1, 0
+    chunks = [(_WGMMA_CK * k, _WGMMA_CK) for k in range(full)]
+    c0 = _WGMMA_CK * full
+    if r > 64:
+        chunks += [(c0, 64), (c0 + 64, 32)]
+    elif r:
+        chunks.append((c0, 64 if r > 32 else 32))
+    return chunks
+
+
+def _pack_wgmma(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW int8 [C_out, C_in, 3, 3] -> [NB, KC, 9, NT, 128] int8 for the
+    wgmma routes: N block, K chunk (:func:`_wgmma_chunks`), tap (3 dy + dx),
+    output channel in the block, the chunk's input channels in a 128-byte row
+    (zero past the chunk's width and past C_in), each [NT, 128] slab with the
+    128-byte swizzle applied (16-byte group g of row n stored at g ^ (n % 8)):
+    what a wgmma B descriptor reads.  NT is K2's N tile: all of C_out up to
+    256."""
+    c_out, c_in = weight.shape[:2]
+    nt = _wgmma_tile_n(c_out)
+    nb, chunks = -(-c_out // nt), _wgmma_chunks(c_in)
+    w = torch.zeros(nb * nt, len(chunks), _WGMMA_CK, 3, 3, dtype=torch.int8, device=weight.device)
+    for k, (c0, width) in enumerate(chunks):
+        n = min(width, c_in - c0)
+        w[:c_out, k, :n] = weight[:, c0:c0 + n]
+    w = w.reshape(nb, nt, len(chunks), _WGMMA_CK, 9).permute(0, 2, 4, 1, 3).contiguous()
+    return _swizzle128(w.view(torch.int16)).view(torch.int8).contiguous()
+
+
+def _unpack_wgmma(packed: torch.Tensor, c_in: int, c_out: int) -> torch.Tensor:
+    """Inverse of :func:`_pack_wgmma`, as OIHW."""
+    nb, kc, _, nt, _ = packed.shape
+    w = _swizzle128(packed.view(torch.int16)).view(torch.int8)  # the swizzle is its own inverse
+    w = w.permute(0, 3, 1, 4, 2).reshape(nb * nt, kc, _WGMMA_CK, 3, 3)
+    return torch.cat([w[:c_out, k, :min(width, c_in - c0)] for k, (c0, width) in enumerate(_wgmma_chunks(c_in))],
+                     dim=1)
+
+
+def _conv_route(c_in: int, ci_pg: int, kernel: Sequence[int], stride: int, padding: Sequence[int], groups: int,
+                x_addr: int) -> str:
+    """Q1's route for a call: the one place the rule lives.  The 3x3 stride-1
+    convs with pads (1, 1, 1, 1) and groups 1 take the wgmma kernel, by TMA
+    where C_in % 16 == 0 and x is 16-byte aligned (a tensor map needs 16-byte
+    strides), else through the producer's loads (the 3-channel stem); every
+    other conv takes the mma.sync kernel with the widest gather of x that C_in,
+    C_in / groups and x's alignment allow."""
+    if tuple(kernel) == (3, 3) and stride == 1 and tuple(padding) == (1, 1, 1, 1) and groups == 1:
+        return "tma_wgmma" if c_in % 16 == 0 and x_addr % 16 == 0 else "ld_wgmma"
+    for width in (16, 4):
+        if ci_pg % width == 0 and c_in % width == 0 and x_addr % width == 0:
+            return f"mma_v{width}"
+    return "mma_v1"
 
 
 def _per_channel(t: torch.Tensor) -> torch.Tensor:
@@ -157,8 +227,9 @@ def qconv2d(x: torch.Tensor, weight: QConvWeight, stride: int = 1, padding: Sequ
     Returns:
         [B, C_out, Ho, Wo], int8 (int32 for ``"acc"``), ``torch.channels_last``.
 
-    CPU tensors take :func:`qconv2d_reference`; CUDA tensors launch Q1,
-    counted in ``qconv2d.launches`` and ``qconv2d.launches_by_route``.
+    CPU tensors take :func:`qconv2d_reference`; CUDA tensors launch Q1 on the
+    route :func:`_conv_route` picks, counted in ``qconv2d.launches`` and
+    ``qconv2d.launches_by_route``.
     """
     if x.ndim != 4 or x.dtype != torch.int8 or not x.is_contiguous(memory_format=_CL):
         raise ValueError(f"qconv2d: x must be a channels_last int8 [B, C, H, W] tensor, got {x.dtype} {tuple(x.shape)}")
@@ -178,7 +249,7 @@ def qconv2d(x: torch.Tensor, weight: QConvWeight, stride: int = 1, padding: Sequ
         raise ValueError(f"qconv2d: a {kh}x{kw} kernel does not fit a padded {h}x{w} input")
     params = dict(bias=bias, rnd=rnd, shift=shift, mult=mult, clamp=clamp)
     _check_epilogue(epilogue, c_out, x.device, **params)
-    if weight.packed.device != x.device:
+    if weight.packed.device != x.device or (weight.wgmma is not None and weight.wgmma.device != x.device):
         raise ValueError("qconv2d: x and the weights must be on one device")
 
     if x.device.type == "cpu":
@@ -191,20 +262,28 @@ def qconv2d(x: torch.Tensor, weight: QConvWeight, stride: int = 1, padding: Sequ
     mode = _EPILOGUES.index(epilogue)
     p0, p1 = (rnd, shift) if epilogue == "shift" else (mult, clamp)
     ptr = lambda t: 0 if t is None or mode == 0 else t.data_ptr()  # noqa: E731
-    route = ctypes.c_int(0)
+    route = _conv_route(c_in, ci_pg, (kh, kw), stride, (top, bottom, left, right), groups, x.data_ptr())
     _, n_pad, k_pad = weight.packed.shape
+    packed, tile_n = weight.packed, weight.tile_n
+    if route.endswith("wgmma"):
+        tile_n = _wgmma_tile_n(c_out)
+        expect = (-(-c_out // tile_n), len(_wgmma_chunks(c_in)), 9, tile_n, _WGMMA_CK)
+        packed = weight.wgmma
+        if packed is None or packed.dtype != torch.int8 or tuple(packed.shape) != expect or not packed.is_contiguous():
+            raise ValueError(f"qconv2d: 3x3 groups-1 weights need their wgmma packing, contiguous int8 {expect} "
+                             "(pack_qconv2d_weights)")
     err = _build.library().ptt_qconv2d(
-        x.device.index, x.data_ptr(), weight.packed.data_ptr(), ptr(bias), ptr(p0), ptr(p1), y.data_ptr(),
-        b, h, w, c_in, ho, wo, c_out, groups, kh, kw, stride, top, left, k_pad, n_pad, weight.tile_n, mode,
-        int(relu), ctypes.byref(route), _build.stream_of(x.device))
-    _build.check(err, "qconv2d")
+        x.device.index, x.data_ptr(), packed.data_ptr(), ptr(bias), ptr(p0), ptr(p1), y.data_ptr(),
+        b, h, w, c_in, ho, wo, c_out, groups, kh, kw, stride, top, left, k_pad, n_pad, tile_n, mode,
+        int(relu), _CONV_ROUTES.index(route), _build.stream_of(x.device))
+    _build.check(err, f"qconv2d ({route})")
     qconv2d.launches += 1
-    qconv2d.launches_by_route[_CONV_ROUTES[route.value]] += 1
+    qconv2d.launches_by_route[route] += 1
     return y
 
 
 qconv2d.launches = 0
-qconv2d.launches_by_route = dict.fromkeys(_CONV_ROUTES.values(), 0)
+qconv2d.launches_by_route = dict.fromkeys(_CONV_ROUTES, 0)
 
 
 def _as_int8_matrix(m) -> np.ndarray:

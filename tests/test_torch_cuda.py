@@ -435,7 +435,8 @@ def test_fused_unet_on_cuda_matches_module(dev):
 
 
 def _to(weight, dev):
-    return weight._replace(weight=weight.weight.to(dev), packed=weight.packed.to(dev))
+    wgmma = None if weight.wgmma is None else weight.wgmma.to(dev)
+    return weight._replace(weight=weight.weight.to(dev), packed=weight.packed.to(dev), wgmma=wgmma)
 
 
 def _epilogue_operands(c_out, epilogue, gen, dev):
@@ -462,6 +463,18 @@ _QCONV_CASES = {
     "unet_32": (2, 32, 32, 1, 3, 1, 33, 64, (1, 1, 1, 1), "shift", True),
     "unet_cat_384": (1, 384, 128, 1, 3, 1, 16, 21, (1, 1, 1, 1), "shift", True),
     "unet_head": (2, 32, 1, 1, 3, 1, 37, 37, (1, 1, 1, 1), "acc", False),
+    "ragged_32": (3, 32, 32, 1, 3, 1, 37, 70, (1, 1, 1, 1), "shift", True),
+    "ragged_64": (2, 32, 64, 1, 3, 1, 13, 131, (1, 1, 1, 1), "shift", True),
+    "unet_cat_96": (2, 96, 32, 1, 3, 1, 40, 50, (1, 1, 1, 1), "shift", True),
+    "unet_cat_192": (2, 192, 64, 1, 3, 1, 20, 33, (1, 1, 1, 1), "shift", True),
+    "c_out_256_512_wide": (1, 128, 256, 1, 3, 1, 5, 512, (1, 1, 1, 1), "shift", True),
+    "c_out_256_acc": (1, 256, 256, 1, 3, 1, 6, 70, (1, 1, 1, 1), "acc", False),
+    "fpn_mul_128": (2, 128, 128, 1, 3, 1, 32, 32, (1, 1, 1, 1), "mul", False),
+    "mul_relu_48": (2, 64, 48, 1, 3, 1, 9, 65, (1, 1, 1, 1), "mul", True),
+    "c_out_16": (2, 16, 16, 1, 3, 1, 17, 66, (1, 1, 1, 1), "shift", True),
+    "c_out_24_tail_200": (1, 200, 24, 1, 3, 1, 11, 12, (1, 1, 1, 1), "shift", True),
+    "c_out_300": (1, 64, 300, 1, 3, 1, 4, 9, (1, 1, 1, 1), "mul", True),
+    "ld_c_in_12_acc": (2, 12, 20, 1, 3, 1, 15, 70, (1, 1, 1, 1), "acc", False),
     "stem_7x7_s2": (2, 3, 64, 1, 7, 2, 64, 64, (3, 3, 3, 3), "mul", True),
     "same_s2_even": (2, 64, 64, 1, 3, 2, 32, 32, (0, 1, 0, 1), "mul", True),
     "same_s2_odd": (2, 64, 64, 1, 3, 2, 33, 31, (1, 1, 1, 1), "mul", True),
@@ -494,25 +507,66 @@ def test_qconv2d_equals_reference_bit_for_bit(dev, case):
     assert torch.equal(got, want), int((got != want).sum())
 
 
-@pytest.mark.parametrize("route,c_in", [("mma_v16", 32), ("mma_v4", 12), ("mma_v1", 3)])
-def test_qconv2d_routes(dev, route, c_in):
+def _misaligned(x):
+    """x's values in a channels_last tensor whose storage starts one byte past a 16-byte boundary."""
+    b, c, h, w = x.shape
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    y = flat[1:1 + x.numel()].view(b, h, w, c).permute(0, 3, 1, 2)
+    y.copy_(x)
+    assert y.is_contiguous(memory_format=torch.channels_last) and y.data_ptr() % 16 == 1
+    return y
+
+
+# (route, C_in, stride, pads, misaligned x): the 3x3 stride-1 pad-1 convs on the wgmma routes, the rest on mma_*
+@pytest.mark.parametrize("route,c_in,stride,pads,misaligned", [
+    ("tma_wgmma", 32, 1, (1, 1, 1, 1), False),
+    ("ld_wgmma", 3, 1, (1, 1, 1, 1), False),
+    ("ld_wgmma", 32, 1, (1, 1, 1, 1), True),
+    ("mma_v16", 32, 2, (0, 1, 0, 1), False),
+    ("mma_v16", 32, 1, (0, 0, 0, 0), False),
+    ("mma_v4", 12, 2, (1, 1, 1, 1), False),
+    ("mma_v1", 3, 2, (1, 1, 1, 1), False),
+])
+def test_qconv2d_routes(dev, route, c_in, stride, pads, misaligned):
     gen = torch.Generator().manual_seed(c_in)
     x = torch.randint(-127, 128, (1, c_in, 10, 10), generator=gen, dtype=torch.int8).to(dev)
     weight = torch.randint(-127, 128, (8, c_in, 3, 3), generator=gen, dtype=torch.int8)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
     before = dict(qconv2d.launches_by_route)
-    got = qconv2d(x.contiguous(memory_format=torch.channels_last), _to(pack_qconv2d_weights(weight), dev),
-                  padding=(1, 1, 1, 1))
+    got = qconv2d(_misaligned(x_cl) if misaligned else x_cl, _to(pack_qconv2d_weights(weight), dev), stride, pads)
     assert {k: qconv2d.launches_by_route[k] - n for k, n in before.items()} == {k: int(k == route) for k in before}
-    assert torch.equal(got, qconv2d_reference(x, weight.to(dev), padding=(1, 1, 1, 1)))
+    assert torch.equal(got, qconv2d_reference(x, weight.to(dev), stride, pads))
+
+
+@pytest.mark.parametrize("c_in", [32, 64, 128, 3])
+def test_qconv2d_wgmma_single_tap(dev, c_in):
+    """One tap of identity weights at a time, on known values: the output is
+    the input shifted by that tap, which pins the s8 A fragments, the swizzle
+    decode and the tap shift of the wgmma routes."""
+    c_out = 32
+    x = ((torch.arange(c_in).view(1, c_in, 1, 1) * 7 + torch.arange(9).view(1, 1, 9, 1) * 3
+          + torch.arange(70).view(1, 1, 1, 70)) % 255 - 127).to(torch.int8).repeat(2, 1, 1, 1)
+    x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    padded = torch.nn.functional.pad(x.to(torch.int32), (1, 1, 1, 1))
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        weight = torch.zeros(c_out, c_in, 3, 3, dtype=torch.int8)
+        for n in range(c_out):
+            weight[n, n % c_in, dy, dx] = 1
+        got = qconv2d(x, _to(pack_qconv2d_weights(weight), dev), 1, (1, 1, 1, 1), "acc")
+        want = padded[:, torch.arange(c_out) % c_in, dy:dy + 9, dx:dx + 70]
+        assert torch.equal(got, want), (tap, int((got != want).sum()))
 
 
 def test_qconv2d_over_2_31_bytes_of_input(dev):
-    """Offsets past 2^31 bytes: the decoder's 96-channel 512^2 input at the main path's 128 views."""
+    """Offsets past 2^31 bytes: the decoder's 96-channel 512^2 input at the main path's 128 views (TMA route)."""
     x = torch.zeros(88, 96, 512, 512, dtype=torch.int8, device=dev).contiguous(memory_format=torch.channels_last)
     x[-1, :, -3:, -3:] = torch.randint(-127, 128, (96, 3, 3), dtype=torch.int8, device=dev)
     gen = torch.Generator().manual_seed(9)
     weight = torch.randint(-127, 128, (32, 96, 3, 3), generator=gen, dtype=torch.int8)
+    before = qconv2d.launches_by_route["tma_wgmma"]
     got = qconv2d(x, _to(pack_qconv2d_weights(weight), dev), padding=(1, 1, 1, 1))
+    assert qconv2d.launches_by_route["tma_wgmma"] == before + 1
     want = qconv2d_reference(x[-1:, :, -4:, -4:], weight.to(dev), padding=(1, 1, 1, 1))
     assert torch.equal(got[-1:, :, -4:, -4:][:, :, 1:, 1:], want[:, :, 1:, 1:])
 
