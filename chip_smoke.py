@@ -26,7 +26,8 @@ Phases, each printed on its own line:
      block (threads, ring stages, dynamic shared memory, blocks per SM); the
      HGMMA, UTMALDG and UBLKCP instructions in the wgmma conv kernels' SASS,
      the IGMMA, UTMALDG, UTMASTG and UBLKCP in Q1's wgmma kernels' and the
-     UTMALDG, LDG, LDS and STG in K1's cell kernels' (``cuobjdump``);
+     UTMALDG, LDG, LDS and STG in K1's cell kernels' (``cuobjdump``); Q2's
+     SASS instructions per output byte, first and banded design;
   2. K2 (conv3x3) against ``conv3x3_reference`` at every conv shape of
      UNet-32 on 512^2 tiles, through the route the UNet takes and through
      the WMMA route; at the main path's batch (64 tiles x 2 views), per
@@ -125,12 +126,14 @@ Phases, each printed on its own line:
      those tiles to the same network on Q1's and Q2's plain versions, and its
      ``int8_forward_rel_rms`` against the bf16 fused forward (bench.py's
      metric); Q1 (qconv2d) at every conv call of that network on 16 tiles
-     and Q2 (q_upsample) at every upsample, with the calls' own data, bit
-     for bit against ``qconv2d_reference`` / ``q_upsample_reference``, each
-     timed beside its bound (bytes over 3.35 TB/s or int8 operations over
-     1979 TOP/s), its plain version, ``torch._int_mm`` on the im2col and
-     the bf16 K2 at the shape, with its route (every 3x3 stride-1 pad-1
-     groups-1 call on a wgmma route, else the phase fails); config 2 in int8
+     and Q2 at every decoder input (q_upsample_cat, and q_upsample alone on
+     the same x), with the calls' own data, bit for bit against
+     ``qconv2d_reference`` / ``q_upsample_cat_reference``, each timed beside
+     its bound (bytes over 3.35 TB/s or int8 operations over 1979 TOP/s),
+     its plain version, ``torch._int_mm`` on the im2col and the bf16 K2 at
+     the shape (Q2: q_upsample + ``torch.cat`` of the same tensors), with its
+     route (every 3x3 stride-1 pad-1 groups-1 call on a wgmma route, every
+     Q2 call on the banded route, else the phase fails); config 2 in int8
      (5000^2, distributed, batch 64, after a warm-up): wall, MP/s, peak
      memory, launches (by route: the checked run's wgmma calls, no other
      route), the output
@@ -290,8 +293,9 @@ INT8_SIZE, INT8_CAL_IMAGES = 1024, 2
 # measures ~0.105 on the calibration tiles, with the integer path bit-equal to the JAX package's given its ranges
 # (tests/test_torch_quantized.py).  A broken integer path lands near 1.
 INT8_PTQ_RMS = 0.15
-INT8_KINDS = (("Q1 (int8 conv)", r"qconv_kernel|qconv_wgmma_kernel"), ("Q2 (int8 upsample)", r"q_upsample_kernel"), ("K1", r"grid_merge"),
-              ("cat", r"CatArray"), ("max pooling (torch.maximum)", r"maximum|max_"))
+INT8_KINDS = (("Q1 (int8 conv)", r"qconv_kernel|qconv_wgmma_kernel"),
+              ("Q2 (int8 upsample and decoder input)", r"q_upsample_band_kernel|q_upsample_kernel"),
+              ("K1", r"grid_merge"), ("cat", r"CatArray"), ("max pooling (torch.maximum)", r"maximum|max_"))
 # Phase 17: training (slice F).  Config 3's model (SEResNeXt50-FPN(128), 19 classes) trained at config 4's shape:
 # batches of 8 x 3 x 1024^2, so the logits are config 4's [8, 19, 1024, 1024]; CE-focal + 0.5 Lovasz-Softmax
 TRAIN_BATCH, TRAIN_SIZE = 8, 1024
@@ -502,7 +506,72 @@ def phase_build():
         counts = _sass_counts(sass, "grid_merge_cell_kernel", ("UTMALDG", "LDG", "LDS", "STG"))
         log(f"[1] SASS of the {counts.pop('functions')} grid_merge_cell_kernel instances (cuobjdump -sass): "
             + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        _log_q2_sass(sass)
     return smi
+
+
+def _sass_functions(sass: str) -> dict:
+    """{function name: [(address, opcode, instruction)]} of a ``cuobjdump -sass`` listing."""
+    functions, current = {}, None
+    for line in sass.splitlines():
+        match = re.search(r"Function : (\S+)", line)
+        if match:
+            current = functions.setdefault(match.group(1), [])
+            continue
+        match = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if match and current is not None:
+            text = match.group(2)
+            opcode = re.sub(r"^@!?U?P[T0-9]+\s+", "", text).split()[0]
+            current.append((int(match.group(1), 16), opcode, text))
+    return functions
+
+
+def _loops(code):
+    """(first address, branch address) of each innermost loop: a branch to an
+    earlier address with no other such branch inside it."""
+    spans = []
+    for addr, opcode, text in code:
+        target = re.search(r"BRA\S*\s+(?:`\(\S+\)\s*)?(0x[0-9a-f]+)", text)
+        if opcode.startswith("BRA") and target and int(target.group(1), 16) < addr:
+            spans.append((int(target.group(1), 16), addr))
+    return [s for s in spans if not any(o != s and s[0] <= o[0] and o[1] <= s[1] for o in spans)]
+
+
+def _log_q2_sass(sass: str) -> None:
+    """Q2's SASS instructions per output byte: the per-pixel kernel's v4
+    instance (the first design, straight-line: its static count, both
+    branches, over its 4 bytes), and the banded kernel's row and column
+    passes (the instructions of each innermost loop that holds IDP.2A, over
+    its IDP.2A count: one IDP.2A yields one byte of a pass), combined at the
+    main path's tiles (a row-pass byte per WW / P output bytes)."""
+    from pytorch_toolbelt_tpu_torch.ops.quantized import _band_tile
+    from pytorch_toolbelt_tpu_torch.zoo.quantized_unet import _q_upsample_matrices
+
+    functions = _sass_functions(sass)
+    pixel = [code for name, code in functions.items() if "q_upsample_kernelILi4E" in name]
+    band = [code for name, code in functions.items() if "q_upsample_band_kernel" in name]
+    if not pixel or not band:
+        log(f"[1] Q2's SASS not found ({len(pixel)} per-pixel v4 and {len(band)} banded functions)")
+        return
+    useful = [op for _, op, _ in pixel[0] if op not in ("NOP", "BRA")]
+    passes = {}
+    for first, last in _loops(band[0]):
+        body = [(op, text) for addr, op, text in band[0] if first <= addr <= last]
+        dp2a = sum(op.startswith("IDP") for op, _ in body)
+        if dp2a:
+            kind = "column" if any(op.startswith("STG") for op, _ in body) else "row"
+            passes.setdefault(kind, []).append((len(body), dp2a))
+    log(f"[1] Q2 SASS: the per-pixel kernel's v4 instance (the first design) {len(useful)} instructions for 4 output "
+        f"bytes = {len(useful) / 4:.2f} per byte; the banded kernel's loops with IDP.2A: "
+        + "; ".join(f"{kind} pass {', '.join(f'{n} instructions / {d} IDP.2A = {n / d:.2f} per byte' for n, d in v)}"
+                    for kind, v in sorted(passes.items())))
+    if set(passes) == {"row", "column"}:
+        row, col = (min(n / d for n, d in passes[k]) for k in ("row", "column"))
+        for c, size in ((256, 64), (128, 128), (64, 256)):
+            mh, mw, _ = _q_upsample_matrices(size, size, 2 * size, 2 * size)
+            r, p, rw, ww = _band_tile(c, mh, mw)
+            log(f"[1] Q2 banded at {c} channels {size}^2 -> {2 * size}^2: tile {r}x{p} (input {rw}x{ww}), "
+                f"{row:.2f} x {ww}/{p} + {col:.2f} = {row * ww / p + col:.2f} SASS instructions per output byte")
 
 
 def _ptxas_report(text: str):
@@ -2042,7 +2111,8 @@ def phase_ensemble_3d(dev, smi, model, fused):
 @contextlib.contextmanager
 def _checked_calls(name: str, check):
     """While the block runs, hold the int8 forwards' calls of Q1 or Q2
-    (``qconv2d`` or ``q_upsample`` as ``zoo/quantized_unet.py`` calls them)
+    (``qconv2d``, ``q_upsample`` or ``q_upsample_cat`` as
+    ``zoo/quantized_unet.py`` calls them)
     against their plain versions as the main path makes them: at the first
     call of each distinct shape, ``check(args, kwargs)`` runs on that call's
     own inputs, so no input outlives its call.  Yields {shape: [check's
@@ -2070,34 +2140,41 @@ def _checked_calls(name: str, check):
 @contextlib.contextmanager
 def _plain_kernels():
     """The int8 forwards with Q1 and Q2 replaced by their plain versions."""
-    from pytorch_toolbelt_tpu_torch.ops import q_upsample_reference, qconv2d_reference
+    from pytorch_toolbelt_tpu_torch.ops import q_upsample_cat_reference, q_upsample_reference, qconv2d_reference
     from pytorch_toolbelt_tpu_torch.zoo import quantized_unet as qu
 
-    real = qu.qconv2d, qu.q_upsample
+    real = qu.qconv2d, qu.q_upsample, qu.q_upsample_cat
     qu.qconv2d = lambda x, weight, stride, padding, epilogue, **kw: qconv2d_reference(
         x, weight.weight, stride, padding, weight.groups, epilogue, **kw)
     qu.q_upsample = lambda x, mh, mw, taps=None: q_upsample_reference(x, mh, mw)
+    qu.q_upsample_cat = lambda x, skip, mh, mw, taps=None: q_upsample_cat_reference(x, skip, mh, mw)
     try:
         yield
     finally:
-        qu.qconv2d, qu.q_upsample = real
+        qu.qconv2d, qu.q_upsample, qu.q_upsample_cat = real
+
+
+INT8_KERNELS = ("qconv2d", "q_upsample", "q_upsample_cat")
 
 
 def _reset_int8_counts():
-    from pytorch_toolbelt_tpu_torch.ops import q_upsample, qconv2d
+    from pytorch_toolbelt_tpu_torch import ops
 
-    for fn in (qconv2d, q_upsample):
+    for name in INT8_KERNELS:
+        fn = getattr(ops, name)
         fn.launches = 0
         for route in fn.launches_by_route:
             fn.launches_by_route[route] = 0
 
 
 def _int8_counts() -> dict:
-    from pytorch_toolbelt_tpu_torch.ops import grid_merge, q_upsample, qconv2d
+    from pytorch_toolbelt_tpu_torch import ops
 
-    return {"qconv2d": qconv2d.launches, "qconv2d_by_route": dict(qconv2d.launches_by_route),
-            "q_upsample": q_upsample.launches, "q_upsample_by_route": dict(q_upsample.launches_by_route),
-            "grid_merge": grid_merge.launches, "grid_merge_by_route": dict(grid_merge.launches_by_route)}
+    counts = {}
+    for name in INT8_KERNELS + ("grid_merge",):
+        fn = getattr(ops, name)
+        counts[name], counts[f"{name}_by_route"] = fn.launches, dict(fn.launches_by_route)
+    return counts
 
 
 def _by_chunks(fn, x, *args, **kwargs):
@@ -2190,23 +2267,30 @@ def _check_q1(what: str, timed: bool, with_k2: bool = False):
     return check
 
 
+def _route_of(fn, call):
+    """``call()``'s result and the route of ``fn`` (a kernel wrapper) that it launched."""
+    before = dict(fn.launches_by_route)
+    out = call()
+    return out, next(r for r, n in fn.launches_by_route.items() if n != before[r])
+
+
 def _check_q2(timed: bool):
     """A check for ``_checked_calls("q_upsample", ...)``: Q2 against
-    ``q_upsample_reference`` bit for bit on the call's own inputs and, if
-    ``timed``, its time beside its bound, its plain version and bf16
-    ``F.interpolate`` of the same tensor."""
+    ``q_upsample_reference`` bit for bit on the call's own inputs, on the
+    banded route, and, if ``timed``, its time beside its bound, its plain
+    version and bf16 ``F.interpolate`` of the same tensor."""
     from pytorch_toolbelt_tpu_torch.ops import q_upsample, q_upsample_reference
 
     def check(args, kwargs):
         x, mh, mw = args
-        before = dict(q_upsample.launches_by_route)
-        got = q_upsample(*args, **kwargs)
-        route = next(r for r, n in q_upsample.launches_by_route.items() if n != before[r])
+        got, route = _route_of(q_upsample, lambda: q_upsample(*args, **kwargs))
         want = _by_chunks(q_upsample_reference, x, mh, mw)
         err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
         shape = f"{list(x.shape)} -> {list(got.shape[2:])}"
         if got.shape != want.shape or err != 0:
             raise AssertionError(f"q_upsample {shape} disagrees with q_upsample_reference (max |err| {err})")
+        if route != "banded":
+            raise AssertionError(f"q_upsample {shape} took the route {route}, not banded")
         record = {"max_abs_err": err, "route": route, "shape": shape}
         if not timed:
             return record
@@ -2218,6 +2302,54 @@ def _check_q2(timed: bool):
         xb = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         record["bf16_ms"] = cuda_ms(lambda: F.interpolate(xb, size=got.shape[2:], mode="bilinear",
                                                           align_corners=True), reps=5)
+        return record
+
+    return check
+
+
+def _check_q2_cat(timed: bool):
+    """A check for ``_checked_calls("q_upsample_cat", ...)``: the decoder
+    input on Q2 against ``q_upsample_cat_reference`` bit for bit on the
+    call's own inputs, and Q2 alone on the same x against the reference's
+    upsampled channels, both on the banded route; if ``timed``, both
+    kernels' times beside their byte bounds, the yardstick (Q2 alone, then
+    ``torch.cat`` with the skip: the decoder before it was fused) and the
+    plain version once."""
+    from pytorch_toolbelt_tpu_torch.ops import q_upsample, q_upsample_cat, q_upsample_cat_reference
+    from pytorch_toolbelt_tpu_torch.ops import q_upsample_reference
+
+    def check(args, kwargs):
+        x, skip, mh, mw = args
+        taps = kwargs.get("taps")
+        plain = lambda: torch.cat([  # noqa: E731
+            q_upsample_cat_reference(x[i:i + INT8_PLAIN_CHUNK], skip[i:i + INT8_PLAIN_CHUNK], mh, mw)
+            for i in range(0, x.shape[0], INT8_PLAIN_CHUNK)])
+        got, route = _route_of(q_upsample_cat, lambda: q_upsample_cat(*args, **kwargs))
+        alone, route_alone = _route_of(q_upsample, lambda: q_upsample(x, mh, mw, taps=taps))
+        want = plain()
+        c = x.shape[1]
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        err_alone = int((alone.to(torch.int32) - want[:, :c].to(torch.int32)).abs().max())
+        shape = f"{list(x.shape)} -> {list(got.shape[2:])} + skip {skip.shape[1]}"
+        if got.shape != want.shape or alone.shape != want[:, :c].shape or max(err, err_alone) != 0:
+            raise AssertionError(f"q_upsample_cat {shape} disagrees with q_upsample_cat_reference (max |err| {err}; "
+                                 f"q_upsample alone {err_alone})")
+        if (route, route_alone) != ("banded", "banded"):
+            raise AssertionError(f"q_upsample_cat {shape} took the routes {route}, {route_alone}, not banded")
+        del want
+        record = {"max_abs_err": max(err, err_alone), "route": route, "shape": shape}
+        if not timed:
+            return record
+        record["bytes"], record["bytes_alone"] = x.numel() + skip.numel() + got.numel(), x.numel() + alone.numel()
+        record["bound"], record["bound_alone"] = bound_ms(record["bytes"])[0], bound_ms(record["bytes_alone"])[0]
+        del got
+        record["ms"] = cuda_ms(lambda: q_upsample_cat(*args, **kwargs), reps=5)
+        record["alone_ms"] = cuda_ms(lambda: q_upsample(x, mh, mw, taps=taps), reps=5)
+        record["cat_ms"] = cuda_ms(lambda: torch.cat([alone, skip], dim=1).contiguous(
+            memory_format=torch.channels_last), reps=5)
+        record["plain_ms"] = cuda_ms(plain, reps=1, windows=1, warmup=0)
+        record["plain_alone_ms"] = cuda_ms(lambda: _by_chunks(q_upsample_reference, x, mh, mw), reps=1, windows=1,
+                                           warmup=0)
         return record
 
     return check
@@ -2277,6 +2409,29 @@ def _q2_totals(seen: dict) -> dict:
             f"{r['ms']} = {r['bytes'] / r['ms'] / 1e6:.0f} GB/s, bound {r['bound']:.3f} ms (bytes) = "
             f"{r['bound'] / r['ms']:.1%} of the kernel; plain version {r['plain_ms']:.3f} ms; bf16 F.interpolate "
             f"of the same tensor (another function, for scale) {r['bf16_ms']:.3f} ms")
+    return total
+
+
+def _q2_cat_totals(seen: dict) -> dict:
+    """The decoder inputs of one run: a log line per checked shape, and the
+    run's sums (each shape's time times its calls)."""
+    keys = ("ms", "alone_ms", "cat_ms", "plain_ms", "plain_alone_ms", "bound", "bound_alone", "bytes", "bytes_alone")
+    total = {**dict.fromkeys(keys, 0.0), "max_abs_err": 0, "calls": sum(n for _, n in seen.values())}
+    for r, n in seen.values():
+        total["max_abs_err"] = max(total["max_abs_err"], r["max_abs_err"])
+        if "ms" not in r:
+            log(f"[16] q_upsample_cat {r['shape']} (x{n}) route {r['route']}: bit-equal to q_upsample_cat_reference, "
+                "q_upsample alone on the same x to its upsampled channels")
+            continue
+        for key in keys:
+            total[key] += n * r[key]
+        log(f"[16] q_upsample_cat {r['shape']} (x{n}) route {r['route']}: bit-equal to q_upsample_cat_reference; "
+            f"kernel {r['ms']} = {r['bytes'] / r['ms'] / 1e6:.0f} GB/s, bound {r['bound']:.3f} ms (bytes: x, skip, "
+            f"output) = {r['bound'] / r['ms']:.1%} of the kernel; q_upsample alone on the same x (bit-equal) "
+            f"{r['alone_ms']} = {r['bytes_alone'] / r['alone_ms'] / 1e6:.0f} GB/s, bound {r['bound_alone']:.3f} ms = "
+            f"{r['bound_alone'] / r['alone_ms']:.1%}; yardstick q_upsample + torch.cat "
+            f"{r['alone_ms'] + r['cat_ms']:.3f} ms (the cat {r['cat_ms']}); plain versions {r['plain_ms']:.3f} ms, "
+            f"alone {r['plain_alone_ms']:.3f} ms")
     return total
 
 
@@ -2349,11 +2504,11 @@ def phase_int8(dev, smi, model, fused, t_start):
 
     # the int8 UNet-32 on 16 tiles: Q1 and Q2 at each call against their plain versions
     with _checked_calls("qconv2d", _check_q1("UNet-32", False)) as convs, \
-            _checked_calls("q_upsample", _check_q2(False)) as ups:
+            _checked_calls("q_upsample_cat", _check_q2_cat(False)) as ups:
         q_forward(tiles)
     torch.cuda.synchronize()
     _q1_totals(convs, f"UNet-32 on {INT8_CHECK_BATCH} tiles")
-    _q2_totals(ups)
+    _q2_cat_totals(ups)
     del convs, ups, tiles
 
     # [16.1, 16.2] config 2 in int8 (5000^2, distributed, batch 64): its first run is the warm-up, in which Q1 and
@@ -2361,20 +2516,24 @@ def phase_int8(dev, smi, model, fused, t_start):
     run = lambda f: tiled_apply_d4_tta(f, image, TILE, STEP, weight="pyramid", batch_size=DIST_BATCH,  # noqa: E731
                                        mode="distributed")
     with _checked_calls("qconv2d", _check_q1("UNet-32", True, with_k2=True)) as convs, \
-            _checked_calls("q_upsample", _check_q2(True)) as ups:
+            _checked_calls("q_upsample_cat", _check_q2_cat(True)) as ups:
         run(q_forward)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     q1 = _q1_totals(convs, "UNet-32")
-    q2 = _q2_totals(ups)
+    q2 = _q2_cat_totals(ups)
     del ups
     log(f"[16] qconv2d UNet-32, the {q1['calls']} convs of the 5000^2 int8 run ({q1['shapes']} distinct shapes), "
         f"each shape's time times its calls: kernel {q1['ms']:.2f} ms, bound {q1['bytes'] + q1['operations']:.2f} ms "
         f"(bytes {q1['bytes']:.2f}, operations {q1['operations']:.2f}), plain version {q1['plain_ms']:.2f} ms, "
         f"torch._int_mm {q1['library_ms']} ms, bf16 K2 at the 3x3 stride-1 shapes {q1['k2_ms']:.2f} ms ({smi})")
-    log(f"[16] q_upsample UNet-32, the {q2['calls']} upsamples of the 5000^2 int8 run: kernel {q2['ms']:.3f} ms, "
-        f"bound {q2['bound_ms']:.3f} ms, plain version {q2['plain_ms']:.2f} ms, bf16 F.interpolate "
-        f"{q2['bf16_ms']:.3f} ms ({smi})")
+    log(f"[16] q_upsample_cat UNet-32, the {q2['calls']} decoder inputs of the 5000^2 int8 run, each shape's time "
+        f"times its calls: kernel {q2['ms']:.3f} ms = {q2['bytes'] / q2['ms'] / 1e6:.0f} GB/s, bound "
+        f"{q2['bound']:.3f} ms = {q2['bound'] / q2['ms']:.1%} of the kernel; q_upsample alone on the same x "
+        f"{q2['alone_ms']:.3f} ms = {q2['bytes_alone'] / q2['alone_ms'] / 1e6:.0f} GB/s, bound "
+        f"{q2['bound_alone']:.3f} ms = {q2['bound_alone'] / q2['alone_ms']:.1%}; yardstick q_upsample + torch.cat "
+        f"{q2['alone_ms'] + q2['cat_ms']:.3f} ms (the cat {q2['cat_ms']:.3f}); plain version {q2['plain_ms']:.2f} ms "
+        f"({smi})")
 
     # [16.4] the counted run, held against the bf16 fused path; then both timed in turns and profiled
     _reset_int8_counts()
@@ -2387,9 +2546,11 @@ def phase_int8(dev, smi, model, fused, t_start):
     launches = _int8_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     _check_merge_routes("[16] 5000^2 int8", 1)
-    if launches["qconv2d"] != q1["calls"] or launches["q_upsample"] != q2["calls"]:
+    if (launches["qconv2d"], launches["q_upsample_cat"], launches["q_upsample"]) != (q1["calls"], q2["calls"], 0):
         raise AssertionError(f"the counted 5000^2 int8 run launched {launches}, the checked run made "
-                             f"{q1['calls']} qconv2d and {q2['calls']} q_upsample calls")
+                             f"{q1['calls']} qconv2d and {q2['calls']} q_upsample_cat calls")
+    if launches["q_upsample_cat_by_route"]["banded"] != q2["calls"]:
+        raise AssertionError(f"the counted 5000^2 int8 run's decoder inputs took {launches['q_upsample_cat_by_route']}")
     _check_q1_routes(convs, launches["qconv2d_by_route"], "UNet-32 5000^2 int8 run")
     del convs
     with torch.no_grad():
@@ -2470,12 +2631,14 @@ def phase_int8(dev, smi, model, fused, t_start):
         f"forward {rms:.4f}; {'ok' if ok else 'FAIL'} ({smi})")
     if not ok:
         raise AssertionError("the int8 SEResNeXt50-FPN gave a wrong shape or non-finite values")
-    for key in ("qconv2d", "q_upsample"):
+    if counts3["q_upsample_by_route"]["banded"] != counts3["q_upsample"]:
+        raise AssertionError(f"the SEResNeXt50-FPN's upsamples took {counts3['q_upsample_by_route']}")
+    for key in INT8_KERNELS:
         launches[key] = launches.get(key, 0) + counts3[key]
         by_route = launches.setdefault(f"{key}_by_route", dict.fromkeys(counts3[f"{key}_by_route"], 0))
         for route, n in counts3[f"{key}_by_route"].items():
             by_route[route] += n
-    if min(launches["qconv2d"], launches["q_upsample"]) == 0:
+    if min(launches[key] for key in INT8_KERNELS) == 0:
         raise AssertionError(f"a kernel of the int8 paths was never launched: {launches}")
     del model3, q3
     torch.cuda.empty_cache()
@@ -2492,9 +2655,15 @@ def phase_int8(dev, smi, model, fused, t_start):
          "encdec_library_ms": q1_3["library_ms"]},
         {"name": "q_upsample", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/q_upsample.cu",
          "replaces": "pytorch_toolbelt_tpu/zoo/quantized_unet.py:175", "launches": launches["q_upsample"],
-         "max_abs_err": max(q2["max_abs_err"], q2_3["max_abs_err"]), "ms": q2["ms"], "plain_ms": q2["plain_ms"],
-         "bound_ms": q2["bound_ms"], "bound_by": "bytes", "library_ms": None,
-         "launches_by_route": launches["q_upsample_by_route"]},
+         "max_abs_err": max(q2["max_abs_err"], q2_3["max_abs_err"]), "ms": q2["alone_ms"],
+         "plain_ms": q2["plain_alone_ms"], "bound_ms": q2["bound_alone"], "bound_by": "bytes", "library_ms": None,
+         "launches_by_route": launches["q_upsample_by_route"], "encdec_ms": q2_3["ms"],
+         "encdec_bound_ms": q2_3["bound_ms"]},
+        {"name": "q_upsample_cat", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/q_upsample.cu",
+         "replaces": "pytorch_toolbelt_tpu/zoo/quantized_unet.py:354", "launches": launches["q_upsample_cat"],
+         "max_abs_err": q2["max_abs_err"], "ms": q2["ms"], "plain_ms": q2["plain_ms"], "bound_ms": q2["bound"],
+         "bound_by": "bytes", "library_ms": None, "launches_by_route": launches["q_upsample_cat_by_route"],
+         "yardstick_ms": q2["alone_ms"] + q2["cat_ms"], "cat_ms": q2["cat_ms"]},
     ]
     return kernels, launches.get("grid_merge", 0), launches.get("grid_merge_by_route", {})
 

@@ -61,8 +61,9 @@ _SIGNATURES = {
     # device, x, packed weights, bias, p0, p1, y, B, H, W, C, Ho, Wo, C_out, groups, kh, kw, stride,
     # pad top, pad left, K_pad, N_pad, N tile, epilogue mode, relu, route (ops/quantized.py _CONV_ROUTES), stream
     "ptt_qconv2d": (_I, [_I] + [_P] * 6 + [_I] * 19 + [_P]),
-    # device, x, y, row taps, column taps, B, H, W, C, OH, OW, int* route taken (out), stream
-    "ptt_q_upsample": (_I, [_I] + [_P] * 4 + [_I] * 6 + [_P, _P]),
+    # device, x, skip (or null), y, row taps, column taps, B, H, W, C, Cs, OH, OW,
+    # route (ops/quantized.py _UPSAMPLE_ROUTES), int[4] tile of the banded route, stream
+    "ptt_q_upsample": (_I, [_I] + [_P] * 5 + [_I] * 8 + [_P, _P]),
     # device, int[6] out: pairs per chunk, threads per block, shared bytes per block, blocks per SM
     # of the chunk sort and of the merge, most runs merged at once
     "ptt_merge_sort_info": (_I, [_I, _P]),

@@ -5,23 +5,30 @@
 The JAX package runs both as XLA ops: ``lax.conv_general_dilated(...,
 preferred_element_type=int32)`` with an integer epilogue
 (``pytorch_toolbelt_tpu/zoo/quantized_unet.py:140``) and two int8 einsums
-against quantized interpolation matrices (``:175``).  torch has neither on
-CUDA, so the port brings hand-written kernels: Q1 has two, ``csrc/qconv_wgmma.cu``
-(a TMA-fed ``wgmma`` s8 implicit GEMM for the 3x3 stride-1 pad-1 groups-1
+against quantized interpolation matrices (``:175``), whose result the UNet's
+decoder joins to its skip (``:354-355``).  torch has neither on CUDA, so the
+port brings hand-written kernels: Q1 has two, ``csrc/qconv_wgmma.cu`` (a
+TMA-fed ``wgmma`` s8 implicit GEMM for the 3x3 stride-1 pad-1 groups-1
 convs, routes ``tma_wgmma`` and ``ld_wgmma``) and ``csrc/qconv.cu`` (an
 ``mma.sync`` s8 implicit GEMM for every other shape, routes ``mma_v16``,
 ``mma_v4``, ``mma_v1``), both with the epilogue fused; Q2 is
-``csrc/q_upsample.cu`` (both interpolation passes of one output pixel from
-its four input pixels).  :func:`_conv_route` picks Q1's route.
+``csrc/q_upsample.cu``: a banded kernel (route ``banded``: a block's tile of
+output rows and columns, its input in shared memory, each row-pass value
+computed once) and the per-pixel kernel for the other channel counts
+(``v4``, ``v1``), which :func:`q_upsample` runs alone and
+:func:`q_upsample_cat` runs writing the decoder input, upsample and skip, in
+one launch.  :func:`_conv_route` and :func:`_upsample_route` pick the routes.
 
 Activations are NCHW tensors in the ``torch.channels_last`` memory format
 (their storage is NHWC), int8.  All integer arithmetic is int32 with two's
 complement wraparound, as XLA's; ``>>`` is arithmetic and a shift of 32 or
 more leaves the sign, as in XLA and torch.
 
-:func:`qconv2d` and :func:`q_upsample` launch their kernel for CUDA tensors
-and run their plain version (:func:`qconv2d_reference`,
-:func:`q_upsample_reference`) for CPU tensors; on any other device they raise.
+:func:`qconv2d`, :func:`q_upsample` and :func:`q_upsample_cat` launch their
+kernel for CUDA tensors and run their plain version
+(:func:`qconv2d_reference`, :func:`q_upsample_reference`,
+:func:`q_upsample_cat_reference`) for CPU tensors; on any other device they
+raise.
 """
 
 import ctypes
@@ -39,6 +46,8 @@ __all__ = [
     "QConvWeight",
     "pack_qconv2d_weights",
     "q_upsample",
+    "q_upsample_cat",
+    "q_upsample_cat_reference",
     "q_upsample_reference",
     "qconv2d",
     "qconv2d_reference",
@@ -52,7 +61,11 @@ _K_STEP = 32  # K bytes per mma.m16n8k32 step: the packed K is padded to it per 
 # Q1's routes; the index is the code ptt_qconv2d takes
 _CONV_ROUTES = ("mma_v16", "mma_v4", "mma_v1", "tma_wgmma", "ld_wgmma")
 _WGMMA_CK = 128  # input channels per full K chunk of the wgmma routes: one 128-byte swizzle row
-_UPSAMPLE_ROUTES = {16: "v16", 4: "v4", 1: "v1"}  # channels per thread
+# Q2's routes; the index is the code ptt_q_upsample takes
+_UPSAMPLE_ROUTES = ("banded", "v4", "v1")
+_BAND_ROWS = 8  # output rows per block of the banded route
+_BAND_ROW_BYTES, _BAND_MIN_COLS, _BAND_MAX_COLS = 4096, 8, 64  # output channels x columns per band row
+_BAND_SMEM = 232448  # shared memory a block may hold on the H100
 _CL = torch.channels_last
 
 
@@ -327,6 +340,104 @@ def q_upsample_reference(x: torch.Tensor, mh, mw) -> torch.Tensor:
     return cols.contiguous(memory_format=_CL)
 
 
+def q_upsample_cat_reference(x: torch.Tensor, skip: torch.Tensor, mh, mw) -> torch.Tensor:
+    """Plain version of :func:`q_upsample_cat`: :func:`q_upsample_reference`,
+    then ``torch.cat`` with the skip."""
+    return torch.cat([q_upsample_reference(x, mh, mw), skip], dim=1).contiguous(memory_format=_CL)
+
+
+def _tap_span(m: np.ndarray, n: int) -> int:
+    """The most input rows that n consecutive output rows of an aligned block
+    reach through the taps of ``m`` (the first and last nonzero of each row,
+    column 0 for a row of zeros, as :func:`upsample_taps` takes them)."""
+    nz = m != 0
+    first, last = nz.argmax(axis=1), (nz * np.arange(m.shape[1])).max(axis=1)
+    pad = -len(first) % n
+    first = np.pad(first, (0, pad), mode="edge").reshape(-1, n)
+    last = np.pad(last, (0, pad), mode="edge").reshape(-1, n)
+    return int((last.max(axis=1) - first.min(axis=1)).max()) + 1
+
+
+_BAND_TILES = {}  # (id(mh), id(mw), C) -> (mh, mw, tile) of read-only matrices, the int8 forwards' cached ones
+
+
+def _band_tile(c: int, mh: np.ndarray, mw: np.ndarray):
+    """(R, P, RW, WW) of the banded route: a block's output rows and columns
+    and the most input rows and columns their taps reach; None where no tile
+    fits in a block's shared memory (``band_smem`` in ``csrc/q_upsample.cu``).
+    A band row holds about 4 KiB of output channels: 16 columns at 256
+    channels, 64 at 64 and fewer.  Kept per pair of read-only matrices (each
+    entry holds its matrices, so their ids stay theirs)."""
+    key = (id(mh), id(mw), c)
+    hit = _BAND_TILES.get(key)
+    if hit is not None and hit[0] is mh and hit[1] is mw:
+        return hit[2]
+    rows = min(_BAND_ROWS, mh.shape[0])
+    cols = min(mw.shape[0], _BAND_MAX_COLS, max(_BAND_MIN_COLS, _BAND_ROW_BYTES // c))
+    while True:
+        rw, ww = _tap_span(mh, rows), _tap_span(mw, cols)
+        if 16 + 16 * (rows + cols) + (rw + rows) * ww * c <= _BAND_SMEM:
+            tile = rows, cols, rw, ww
+            break
+        if cols > 1:
+            cols //= 2
+        elif rows > 1:
+            rows //= 2
+        else:
+            tile = None
+            break
+    if not (mh.flags.writeable or mw.flags.writeable):
+        if len(_BAND_TILES) >= 256:
+            _BAND_TILES.clear()
+        _BAND_TILES[key] = (mh, mw, tile)
+    return tile
+
+
+def _upsample_route(c: int, cs: int, addrs: Sequence[int], mh: np.ndarray, mw: np.ndarray):
+    """Q2's route for a call, and the banded route's tile: the one place the
+    rule lives.  ``banded`` takes every call whose channel counts (C, and Cs
+    of the skip where there is one) are multiples of 16 on 16-byte aligned
+    tensors, where a tile of the taps fits in shared memory (every bilinear
+    resize); the per-pixel kernel takes the rest, 4 channels per thread
+    (``v4``) where C, Cs and the addresses allow it, else one (``v1``)."""
+    if c % 16 == 0 and cs % 16 == 0 and all(a % 16 == 0 for a in addrs):
+        tile = _band_tile(c, mh, mw)
+        if tile is not None and _BAND_ROWS * mw.shape[0] * (c + cs) < 2**31:
+            return "banded", tile
+    if c % 4 == 0 and cs % 4 == 0 and all(a % 4 == 0 for a in addrs):
+        return "v4", None
+    return "v1", None
+
+
+def _check_upsample_input(x: torch.Tensor, mh, mw, name: str):
+    if x.ndim != 4 or x.dtype != torch.int8 or not x.is_contiguous(memory_format=_CL):
+        raise ValueError(f"{name}: x must be a channels_last int8 [B, C, H, W] tensor, got {x.dtype} {tuple(x.shape)}")
+    mh, mw = _as_int8_matrix(mh), _as_int8_matrix(mw)
+    if mh.shape[1] != x.shape[2] or mw.shape[1] != x.shape[3]:
+        raise ValueError(f"{name}: matrices {mh.shape} and {mw.shape} do not fit a {x.shape[2]}x{x.shape[3]} input")
+    return mh, mw
+
+
+def _launch_upsample(x: torch.Tensor, skip: Optional[torch.Tensor], mh: np.ndarray, mw: np.ndarray, taps,
+                     name: str):
+    """Q2 on the card: [B, C (+ Cs), OH, OW] channels_last int8, and the route it took."""
+    b, c, h, w = x.shape
+    oh, ow = mh.shape[0], mw.shape[0]
+    rows, cols = taps if taps is not None else (upsample_taps(mh, x.device), upsample_taps(mw, x.device))
+    if any(t.shape != (n, 4) or t.dtype != torch.int32 or not t.is_contiguous() or t.device != x.device
+           for t, n in ((rows, oh), (cols, ow))):
+        raise ValueError(f"{name}: taps must be contiguous int32 [{oh}, 4] and [{ow}, 4] tensors on {x.device}")
+    cs = 0 if skip is None else skip.shape[1]
+    y = torch.empty(b, c + cs, oh, ow, dtype=torch.int8, device=x.device, memory_format=_CL)
+    skip_ptr = skip.data_ptr() if cs else 0
+    route, tile = _upsample_route(c, cs, (x.data_ptr(), y.data_ptr()) + ((skip_ptr,) if cs else ()), mh, mw)
+    err = _build.library().ptt_q_upsample(
+        x.device.index, x.data_ptr(), skip_ptr, y.data_ptr(), rows.data_ptr(), cols.data_ptr(), b, h, w, c, cs, oh,
+        ow, _UPSAMPLE_ROUTES.index(route), (ctypes.c_int * 4)(*(tile or (0, 0, 0, 0))), _build.stream_of(x.device))
+    _build.check(err, f"{name} ({route})")
+    return y, route
+
+
 def q_upsample(x: torch.Tensor, mh, mw, taps=None) -> torch.Tensor:
     """Requantized int8 bilinear resize with quantized interpolation matrices.
 
@@ -342,34 +453,56 @@ def q_upsample(x: torch.Tensor, mh, mw, taps=None) -> torch.Tensor:
         [B, C, OH, OW] int8, ``torch.channels_last``:
         ``clip((mw @ clip((mh @ x + 64) >> 7) + 64) >> 7)`` per channel.
 
-    CPU tensors take :func:`q_upsample_reference`; CUDA tensors launch Q2,
-    counted in ``q_upsample.launches`` and ``q_upsample.launches_by_route``.
+    CPU tensors take :func:`q_upsample_reference`; CUDA tensors launch Q2 on
+    the route :func:`_upsample_route` picks, counted in
+    ``q_upsample.launches`` and ``q_upsample.launches_by_route``.
     """
-    if x.ndim != 4 or x.dtype != torch.int8 or not x.is_contiguous(memory_format=_CL):
-        raise ValueError(f"q_upsample: x must be a channels_last int8 [B, C, H, W] tensor, got {x.dtype} {tuple(x.shape)}")
-    mh, mw = _as_int8_matrix(mh), _as_int8_matrix(mw)
-    b, c, h, w = x.shape
-    if mh.shape[1] != h or mw.shape[1] != w:
-        raise ValueError(f"q_upsample: matrices {mh.shape} and {mw.shape} do not fit a {h}x{w} input")
+    mh, mw = _check_upsample_input(x, mh, mw, "q_upsample")
     if x.device.type == "cpu":
         return q_upsample_reference(x, mh, mw)
     if x.device.type != "cuda":
         raise ValueError(f"q_upsample: unsupported device {x.device}")
-    oh, ow = mh.shape[0], mw.shape[0]
-    rows, cols = taps if taps is not None else (upsample_taps(mh, x.device), upsample_taps(mw, x.device))
-    if any(t.shape != (n, 4) or t.dtype != torch.int32 or not t.is_contiguous() or t.device != x.device
-           for t, n in ((rows, oh), (cols, ow))):
-        raise ValueError(f"q_upsample: taps must be contiguous int32 [{oh}, 4] and [{ow}, 4] tensors on {x.device}")
-    y = torch.empty(b, c, oh, ow, dtype=torch.int8, device=x.device, memory_format=_CL)
-    route = ctypes.c_int(0)
-    err = _build.library().ptt_q_upsample(x.device.index, x.data_ptr(), y.data_ptr(), rows.data_ptr(),
-                                          cols.data_ptr(), b, h, w, c, oh, ow, ctypes.byref(route),
-                                          _build.stream_of(x.device))
-    _build.check(err, "q_upsample")
+    y, route = _launch_upsample(x, None, mh, mw, taps, "q_upsample")
     q_upsample.launches += 1
-    q_upsample.launches_by_route[_UPSAMPLE_ROUTES[route.value]] += 1
+    q_upsample.launches_by_route[route] += 1
     return y
 
 
 q_upsample.launches = 0
-q_upsample.launches_by_route = dict.fromkeys(_UPSAMPLE_ROUTES.values(), 0)
+q_upsample.launches_by_route = dict.fromkeys(_UPSAMPLE_ROUTES, 0)
+
+
+def q_upsample_cat(x: torch.Tensor, skip: torch.Tensor, mh, mw, taps=None) -> torch.Tensor:
+    """The int8 decoder input: :func:`q_upsample` of ``x`` joined to ``skip``
+    along the channels, written at once.
+
+    Args:
+        x, mh, mw, taps: as :func:`q_upsample`.
+        skip: [B, Cs, OH, OW] int8, ``torch.channels_last`` contiguous, on x's
+            device.
+    Returns:
+        [B, C + Cs, OH, OW] int8, ``torch.channels_last``:
+        ``torch.cat([q_upsample(x, mh, mw), skip], 1)``.
+
+    CPU tensors take :func:`q_upsample_cat_reference`; CUDA tensors launch Q2
+    with the skip on the route :func:`_upsample_route` picks, counted in
+    ``q_upsample_cat.launches`` and ``q_upsample_cat.launches_by_route``.
+    """
+    mh, mw = _check_upsample_input(x, mh, mw, "q_upsample_cat")
+    want = (x.shape[0], mh.shape[0], mw.shape[0])
+    if (skip.ndim != 4 or skip.dtype != torch.int8 or not skip.is_contiguous(memory_format=_CL)
+            or (skip.shape[0], *skip.shape[2:]) != want or skip.device != x.device):
+        raise ValueError(f"q_upsample_cat: skip must be a channels_last int8 [{want[0]}, Cs, {want[1]}, {want[2]}] "
+                         f"tensor on {x.device}, got {skip.dtype} {tuple(skip.shape)} on {skip.device}")
+    if x.device.type == "cpu":
+        return q_upsample_cat_reference(x, skip, mh, mw)
+    if x.device.type != "cuda":
+        raise ValueError(f"q_upsample_cat: unsupported device {x.device}")
+    y, route = _launch_upsample(x, skip, mh, mw, taps, "q_upsample_cat")
+    q_upsample_cat.launches += 1
+    q_upsample_cat.launches_by_route[route] += 1
+    return y
+
+
+q_upsample_cat.launches = 0
+q_upsample_cat.launches_by_route = dict.fromkeys(_UPSAMPLE_ROUTES, 0)

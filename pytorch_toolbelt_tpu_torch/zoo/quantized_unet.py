@@ -11,7 +11,8 @@ The whole network stays in the integer domain, as in the JAX package:
   (:func:`~pytorch_toolbelt_tpu_torch.ops.qconv2d`);
 * the bilinear upsample (align_corners=True) runs on int8 interpolation
   matrices quantized to round(M * 127), both passes and their requants in
-  the kernel Q2 (:func:`~pytorch_toolbelt_tpu_torch.ops.q_upsample`);
+  the kernel Q2, which also writes the skip beside them: each decoder input
+  in one launch (:func:`~pytorch_toolbelt_tpu_torch.ops.q_upsample_cat`);
 * 2x2 max pooling and the channel concatenation are exact in int8;
 * only the image input (one quantize) and the head logits (one dequant)
   touch float.
@@ -38,7 +39,7 @@ from ..nn.activations import ACT_RELU
 from ..nn.functional import _linear_weights
 from ..nn.normalization import _BATCH_ALIASES
 from ..nn.simple import _same_padding
-from ..ops.quantized import _to_int8, pack_qconv2d_weights, q_upsample, qconv2d, upsample_taps
+from ..ops.quantized import _to_int8, pack_qconv2d_weights, q_upsample, q_upsample_cat, qconv2d, upsample_taps
 from .models import UNetSegmentationModel
 
 __all__ = ["quantize_unet_inference"]
@@ -190,6 +191,14 @@ def _q_upsample(x_q: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return q_upsample(x_q, mh, mw, taps=_q_upsample_taps(*shape, x_q.device))
 
 
+def _q_upsample_cat(x_q: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """The int8 decoder input, ``x_q`` upsampled to the skip's size and
+    joined to it, in one launch of Q2."""
+    shape = (*x_q.shape[2:], *skip.shape[2:])
+    mh, mw, _ = _q_upsample_matrices(*shape)
+    return q_upsample_cat(x_q, skip, mh, mw, taps=_q_upsample_taps(*shape, x_q.device))
+
+
 @contextlib.contextmanager
 def _full_fp32():
     """float32 convolutions and matrix products in full precision on the
@@ -335,8 +344,7 @@ def _build_int8_unet(cal: _UNetCalibration, in_channels: int, output_name: Optio
                 x_q = _qconv_apply(x_q, qc)
             skips.append(x_q)
         for idx, i in enumerate(range(num_stages - 1, -1, -1)):
-            skip = skips[i]
-            x_q = torch.cat([_q_upsample(x_q, *skip.shape[2:]), skip], dim=1).contiguous(memory_format=_CL)
+            x_q = _q_upsample_cat(x_q, skips[i])
             for qc in q_dec[idx]:
                 x_q = _qconv_apply(x_q, qc)
         y = (head(x_q).float() * head_sw + head_bias).contiguous()

@@ -18,8 +18,8 @@ from pytorch_toolbelt_tpu_torch.ops import accumulate_tiles, accumulate_tiles_re
 from pytorch_toolbelt_tpu_torch.ops import conv3x3, conv3x3_reference, grid_merge, grid_merge_reference
 from pytorch_toolbelt_tpu_torch.ops import pack_conv3x3_weights
 from pytorch_toolbelt_tpu_torch.ops.conv_kernels import _pack_wmma, _route, _unpack
-from pytorch_toolbelt_tpu_torch.ops import pack_qconv2d_weights, q_upsample, q_upsample_reference, qconv2d
-from pytorch_toolbelt_tpu_torch.ops import qconv2d_reference, upsample_taps
+from pytorch_toolbelt_tpu_torch.ops import pack_qconv2d_weights, q_upsample, q_upsample_cat, q_upsample_cat_reference
+from pytorch_toolbelt_tpu_torch.ops import q_upsample_reference, qconv2d, qconv2d_reference, upsample_taps
 from pytorch_toolbelt_tpu_torch.zoo import UNetSegmentationModel, fuse_unet_inference, quantize_unet_inference
 from pytorch_toolbelt_tpu_torch.zoo.quantized_unet import _build_int8_unet, _calibrate_unet, _q_upsample_matrices
 
@@ -430,7 +430,7 @@ def test_fused_unet_on_cuda_matches_module(dev):
 
 
 # ---------------------------------------------------------------------------
-# int8 inference: Q1 (qconv2d), Q2 (q_upsample) and the integer UNet
+# int8 inference: Q1 (qconv2d), Q2 (q_upsample, q_upsample_cat) and the integer UNet
 # ---------------------------------------------------------------------------
 
 
@@ -571,24 +571,95 @@ def test_qconv2d_over_2_31_bytes_of_input(dev):
     assert torch.equal(got[-1:, :, -4:, -4:][:, :, 1:, 1:], want[:, :, 1:, 1:])
 
 
-@pytest.mark.parametrize("c,h,w,oh,ow", [(32, 8, 8, 16, 16), (64, 5, 7, 10, 13), (3, 7, 7, 13, 14),
-                                         (4, 32, 32, 64, 64), (256, 4, 4, 8, 8), (16, 1, 3, 2, 6)])
-def test_q_upsample_equals_reference_bit_for_bit(dev, c, h, w, oh, ow):
-    gen = torch.Generator().manual_seed(c * h * w)
-    x = torch.randint(-127, 128, (2, c, h, w), generator=gen, dtype=torch.int8)
+# (B, C, Cs of the skip, H, W, OH, OW): ragged bands and strips on the banded route (8-row bands, strips of
+# 16/32/64 columns at 256/128/64 channels), the decoder's channel pairs, a downsample, C % 32 == 16, and the
+# per-pixel routes
+_Q2_CASES = [
+    (1, 256, 128, 9, 11, 17, 21), (3, 128, 64, 13, 20, 26, 39), (3, 64, 32, 12, 40, 23, 79), (1, 256, 0, 4, 4, 8, 8),
+    (2, 32, 0, 8, 8, 16, 16), (2, 64, 16, 5, 7, 10, 13), (2, 48, 16, 6, 6, 12, 12), (2, 16, 0, 1, 3, 2, 6),
+    (1, 128, 0, 40, 40, 9, 17), (2, 3, 5, 7, 7, 13, 14), (2, 4, 4, 32, 32, 64, 64), (3, 4, 0, 5, 6, 9, 11),
+]
+
+
+@pytest.mark.parametrize("b,c,cs,h,w,oh,ow", _Q2_CASES)
+def test_q_upsample_equals_reference_bit_for_bit(dev, b, c, cs, h, w, oh, ow):
+    """Both forms, q_upsample and q_upsample_cat, against their plain versions, with their launch and route counts."""
+    gen = torch.Generator().manual_seed(c * h * w + cs)
+    x = torch.randint(-128, 128, (b, c, h, w), generator=gen, dtype=torch.int8)
     x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    skip = torch.randint(-128, 128, (b, cs, oh, ow), generator=gen, dtype=torch.int8)
+    skip = skip.to(dev).contiguous(memory_format=torch.channels_last)
     mh, mw, _ = _q_upsample_matrices(h, w, oh, ow)
-    before, by_route = q_upsample.launches, dict(q_upsample.launches_by_route)
+    route = "banded" if c % 16 == 0 and cs % 16 == 0 else "v4" if c % 4 == 0 and cs % 4 == 0 else "v1"
+    want = q_upsample_reference(x, mh, mw)
+    for fn, args, ref in ((q_upsample, (x,), want),
+                          (q_upsample_cat, (x, skip), torch.cat([want, skip], dim=1))):
+        before, by_route = fn.launches, dict(fn.launches_by_route)
+        got = fn(*args, mh, mw)
+        assert fn.launches == before + 1
+        assert fn.launches_by_route[route] == by_route[route] + 1
+        assert got.shape == ref.shape and got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, ref)
+        taps = (upsample_taps(mh, dev), upsample_taps(mw, dev))  # made once by the caller, as the int8 forwards do
+        assert torch.equal(fn(*args, mh, mw, taps=taps), got)
+        with pytest.raises(ValueError, match="taps must be"):
+            fn(*args, mh, mw, taps=taps[::-1] if oh != ow else (taps[0][:-1], taps[1]))
+
+
+def test_q_upsample_cat_over_2_31_bytes_of_output(dev):
+    """Offsets past 2^31 bytes: the stage-3 decoder input at the main path's batch, 100 x 96 x 512^2 (2.5 GB),
+    with data only in the last sample's corner."""
+    x = torch.zeros(100, 64, 256, 256, dtype=torch.int8, device=dev).contiguous(memory_format=torch.channels_last)
+    skip = torch.zeros(100, 32, 512, 512, dtype=torch.int8, device=dev).contiguous(memory_format=torch.channels_last)
+    x[-1, :, -3:, -3:] = torch.randint(-127, 128, (64, 3, 3), dtype=torch.int8, device=dev)
+    skip[-1, :, -3:, -3:] = torch.randint(-127, 128, (32, 3, 3), dtype=torch.int8, device=dev)
+    mh, mw, _ = _q_upsample_matrices(256, 256, 512, 512)
+    before = q_upsample_cat.launches_by_route["banded"]
+    got = q_upsample_cat(x, skip, mh, mw)
+    assert q_upsample_cat.launches_by_route["banded"] == before + 1
+    assert got.numel() > 2**31
+    assert torch.equal(got[-1:], q_upsample_cat_reference(x[-1:], skip[-1:], mh, mw))
+    assert int(got[-1, :, -6:, -6:].abs().sum()) > 0 and int(got[:-1].abs().amax()) == 0
+
+
+def _every_tap_pair():
+    """The distinct (m0, m1) tap pairs of the main paths' matrices: the int8 UNet-32's decoder upsamples
+    (64 -> 128, 128 -> 256, 256 -> 512) and the SEResNeXt50-FPN's x2 (32 -> 64 and up), the one-tap edge
+    rows (127, 0) among them."""
+    pairs = set()
+    for size in (32, 64, 128, 256):
+        m = _q_upsample_matrices(size, size, 2 * size, 2 * size)[0]
+        for row in m:
+            nz = np.flatnonzero(row)
+            pairs.add((int(row[nz[0]]), int(row[nz[-1]]) if nz.size == 2 else 0))
+    return sorted(pairs)
+
+
+@pytest.mark.parametrize("axis", ["rows", "columns"])
+def test_q_upsample_arithmetic_is_exact_for_every_int8_pair_and_tap_pair(dev, axis):
+    """Every int8 pair (a, b), a in the rows (or columns) 2i and b in 2i + 1, under every tap pair of the main
+    paths, one pass of the banded route at a time: a of input 2i is i - 128, b is the channel - 128.  The
+    other axis has two equal inputs under the taps (127, 1), which pass a value of the first pass through:
+    (128 v + 64) >> 7 = v."""
+    pairs = _every_tap_pair()
+    assert (127, 0) in pairs and len(pairs) > 100
+    m = np.zeros((len(pairs) * 256, 512), np.int8)  # 256 rows per pair: no 8-row band or 16-column strip spans two
+    for k, (m0, m1) in enumerate(pairs):
+        m[k * 256 + np.arange(256), 2 * np.arange(256)] = m0
+        m[k * 256 + np.arange(256), 2 * np.arange(256) + 1] = m1
+    through = np.array([[127, 1]], np.int8)
+    values = torch.where(torch.arange(512) % 2 == 0, torch.arange(512) // 2, torch.zeros(512, dtype=torch.long))
+    x = (values.view(1, 1, 512) + torch.where(torch.arange(512) % 2 == 1, torch.arange(256).view(256, 1), 0)) - 128
+    x = x.to(torch.int8).view(1, 256, 512, 1).expand(1, 256, 512, 2)  # [1, C, 512 (a, b), 2 equal]
+    mh, mw = (m, through) if axis == "rows" else (through, m)
+    if axis == "columns":
+        x = x.transpose(2, 3)
+    x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    before = q_upsample.launches_by_route["banded"]
     got = q_upsample(x, mh, mw)
-    assert q_upsample.launches == before + 1
-    route = "v16" if c % 16 == 0 else "v4" if c % 4 == 0 else "v1"
-    assert q_upsample.launches_by_route[route] == by_route[route] + 1
-    assert got.shape == (2, c, oh, ow) and got.is_contiguous(memory_format=torch.channels_last)
+    assert q_upsample.launches_by_route["banded"] == before + 1
+    assert got.shape == (1, 256, *((len(pairs) * 256, 1) if axis == "rows" else (1, len(pairs) * 256)))
     assert torch.equal(got, q_upsample_reference(x, mh, mw))
-    taps = (upsample_taps(mh, dev), upsample_taps(mw, dev))  # made once by the caller, as the int8 forwards do
-    assert torch.equal(q_upsample(x, mh, mw, taps=taps), got)
-    with pytest.raises(ValueError, match="taps must be"):
-        q_upsample(x, mh, mw, taps=taps[::-1] if oh != ow else (taps[0][:-1], taps[1]))
 
 
 def test_int8_unet_on_cuda_equals_its_plain_forward(dev):
@@ -599,9 +670,10 @@ def test_int8_unet_on_cuda_equals_its_plain_forward(dev):
     gen = torch.Generator().manual_seed(1)
     cal_images, x = torch.rand(2, 3, 64, 64, generator=gen), torch.rand(3, 3, 64, 96, generator=gen)
     cal = _calibrate_unet(model, cal_images, 1.0)
-    before, ups = qconv2d.launches, q_upsample.launches
+    before, ups, cats = qconv2d.launches, q_upsample.launches, q_upsample_cat.launches_by_route["banded"]
     got = _build_int8_unet(cal, 3, None, dev)(x.to(dev))
-    assert (qconv2d.launches - before, q_upsample.launches - ups) == (2 * (2 * 3 - 1) + 1, 2)
+    assert (qconv2d.launches - before, q_upsample.launches - ups) == (2 * (2 * 3 - 1) + 1, 0)
+    assert q_upsample_cat.launches_by_route["banded"] - cats == 2  # each decoder input in one launch
     want = _build_int8_unet(cal, 3, None, torch.device("cpu"))(x)
     assert torch.equal(got.cpu(), want)
     # and calibrated on the card (TF32 off), it stays within int8 PTQ error of the float model
@@ -964,10 +1036,15 @@ def _launch_each_entry_point(name, dev):
         w = torch.randint(-127, 128, (8, 16, 3, 3), generator=gen, dtype=torch.int8)
         qconv2d(x.to(dev).contiguous(memory_format=torch.channels_last), _to(pack_qconv2d_weights(w), dev),
                 padding=(1, 1, 1, 1))
-    elif name == "q_upsample":
+    elif name in ("q_upsample", "q_upsample_cat"):
         x = torch.randint(-127, 128, (1, 16, 8, 8), generator=gen, dtype=torch.int8)
         mh, mw, _ = _q_upsample_matrices(8, 8, 16, 16)
-        q_upsample(x.to(dev).contiguous(memory_format=torch.channels_last), mh, mw)
+        x = x.to(dev).contiguous(memory_format=torch.channels_last)
+        if name == "q_upsample":
+            q_upsample(x, mh, mw)
+        else:
+            q_upsample_cat(x, torch.zeros(1, 16, 16, 16, dtype=torch.int8, device=dev).contiguous(
+                memory_format=torch.channels_last), mh, mw)
     elif name in ("conv3x3_tma_wgmma", "conv3x3_ld_wgmma", "conv3x3_wmma"):
         c_in = 3 if name == "conv3x3_ld_wgmma" else 16
         pack = _pack_wmma if name == "conv3x3_wmma" else pack_conv3x3_weights
@@ -981,7 +1058,7 @@ def _launch_each_entry_point(name, dev):
 
 
 @pytest.mark.parametrize("name", ["grid_merge", "scatter_merge", "conv3x3_tma_wgmma", "conv3x3_ld_wgmma",
-                                  "conv3x3_wmma", "K4", "K5", "qconv2d", "q_upsample"])
+                                  "conv3x3_wmma", "K4", "K5", "qconv2d", "q_upsample", "q_upsample_cat"])
 def test_entry_points_restore_the_current_device(dev, name):
     """A launch on cuda:1 tensors from a thread on cuda:0 leaves it on cuda:0."""
     if torch.cuda.device_count() < 2:

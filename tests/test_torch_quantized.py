@@ -37,8 +37,9 @@ from pytorch_toolbelt_tpu.zoo import UNetSegmentationModel as JUNet
 from pytorch_toolbelt_tpu.zoo import quantized_unet as JQU
 from pytorch_toolbelt_tpu_torch.inference import tiled_apply_d4_tta
 from pytorch_toolbelt_tpu_torch.nn.simple import _same_padding
-from pytorch_toolbelt_tpu_torch.ops import pack_qconv2d_weights, q_upsample, q_upsample_reference, qconv2d
-from pytorch_toolbelt_tpu_torch.ops import qconv2d_reference
+from pytorch_toolbelt_tpu_torch.ops import pack_qconv2d_weights, q_upsample, q_upsample_cat, q_upsample_cat_reference
+from pytorch_toolbelt_tpu_torch.ops import q_upsample_reference, qconv2d, qconv2d_reference
+from pytorch_toolbelt_tpu_torch.ops import quantized as QOPS
 from pytorch_toolbelt_tpu_torch.ops.quantized import _requant, upsample_taps
 from pytorch_toolbelt_tpu_torch.zoo import UNetSegmentationModel, load_flax_variables, quantize_unet_inference
 from pytorch_toolbelt_tpu_torch.zoo import quantized_unet as TQU
@@ -221,26 +222,93 @@ def test_qconv2d_plain_version_is_exact_past_2_24():
 
 
 # ---------------------------------------------------------------------------
-# Q2: q_upsample against _q_upsample's two int8 einsums
+# Q2: q_upsample against _q_upsample's two int8 einsums, q_upsample_cat against
+# them and the decoder's concatenate
 # ---------------------------------------------------------------------------
 
+_Q2_CASES = [  # (C, Cs of the skip, H, W, OH, OW); the first six keep their ids from before the skip
+    pytest.param(8, 16, 8, 8, 16, 16, id="8-8-8-16-16"),
+    pytest.param(16, 32, 32, 32, 64, 64, id="16-32-32-64-64"),
+    pytest.param(6, 2, 5, 7, 10, 13, id="6-5-7-10-13"),
+    pytest.param(3, 5, 7, 7, 13, 14, id="3-7-7-13-14"),
+    pytest.param(4, 4, 1, 3, 2, 6, id="4-1-3-2-6"),
+    pytest.param(5, 3, 4, 4, 4, 4, id="5-4-4-4-4"),
+    (256, 128, 4, 4, 8, 8),  # the int8 UNet-32's three decoder inputs at small maps
+    (128, 64, 5, 6, 10, 12),
+    (64, 32, 8, 8, 16, 16),
+    (4, 4, 6, 5, 11, 9),  # the per-pixel routes' channel counts at odd, non-x2 sizes
+    (3, 5, 3, 5, 8, 7),
+]
 
-@pytest.mark.parametrize("c,h,w,oh,ow", [(8, 8, 8, 16, 16), (16, 32, 32, 64, 64), (6, 5, 7, 10, 13),
-                                         (3, 7, 7, 13, 14), (4, 1, 3, 2, 6), (5, 4, 4, 4, 4)])
-def test_q_upsample_matches_jax(c, h, w, oh, ow):
+
+@pytest.mark.parametrize("c,cs,h,w,oh,ow", _Q2_CASES)
+def test_q_upsample_matches_jax(c, cs, h, w, oh, ow):
     mh, mw, mult = TQU._q_upsample_matrices(h, w, oh, ow)
     jmh, jmw, jmult = JQU._q_upsample_matrices(h, w, oh, ow)
     np.testing.assert_array_equal(mh, np.asarray(jmh))
     np.testing.assert_array_equal(mw, np.asarray(jmw))
     assert mult == jmult
     assert max((m != 0).sum(axis=1).max() for m in (mh, mw)) <= 2  # what Q2 relies on
-    x = np.random.RandomState(c * h * w).randint(-127, 128, (2, h, w, c)).astype(np.int8)
-    want = np.asarray(JQU._q_upsample(jnp.asarray(x), jmh, jmw))
+    rng = np.random.RandomState(c * h * w)
+    x = rng.randint(-127, 128, (2, h, w, c)).astype(np.int8)
+    skip = rng.randint(-127, 128, (2, oh, ow, cs)).astype(np.int8)
+    up = JQU._q_upsample(jnp.asarray(x), jmh, jmw)
+    want, want_cat = np.asarray(up), np.asarray(jnp.concatenate([up, jnp.asarray(skip)], axis=-1))
     xt = _nchw(x).contiguous(memory_format=torch.channels_last)
-    got = q_upsample(xt, mh, mw)
-    assert got.dtype == torch.int8 and got.is_contiguous(memory_format=torch.channels_last)
-    np.testing.assert_array_equal(_nhwc(got), want)
-    np.testing.assert_array_equal(_nhwc(q_upsample_reference(xt, mh, mw)), want)
+    st = _nchw(skip).contiguous(memory_format=torch.channels_last)
+    for got, ref in ((q_upsample(xt, mh, mw), want), (q_upsample_reference(xt, mh, mw), want),
+                     (q_upsample_cat(xt, st, mh, mw), want_cat), (q_upsample_cat_reference(xt, st, mh, mw), want_cat)):
+        assert got.dtype == torch.int8 and got.is_contiguous(memory_format=torch.channels_last)
+        np.testing.assert_array_equal(_nhwc(got), ref)
+
+
+_BAD_SKIPS = {  # what is wrong with a skip for x [2, 8, 4, 4] upsampled to 8 x 8
+    "batch": lambda: torch.zeros(1, 4, 8, 8, dtype=torch.int8),
+    "size": lambda: torch.zeros(2, 4, 8, 7, dtype=torch.int8),
+    "dtype": lambda: torch.zeros(2, 4, 8, 8, dtype=torch.int16),
+    "device": lambda: torch.zeros(2, 4, 8, 8, dtype=torch.int8, device="meta"),
+    "memory_format": lambda: torch.zeros(2, 4, 8, 8, dtype=torch.int8).contiguous(),
+}
+
+
+@pytest.mark.parametrize("case", list(_BAD_SKIPS))
+def test_q_upsample_cat_refuses_a_skip_that_does_not_fit(case):
+    mh, mw, _ = TQU._q_upsample_matrices(4, 4, 8, 8)
+    x = torch.zeros(2, 8, 4, 4, dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+    skip = _BAD_SKIPS[case]()
+    if case != "memory_format":
+        skip = skip.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="skip must be"):
+        q_upsample_cat(x, skip, mh, mw)
+
+
+@pytest.mark.parametrize("c,cs,size,route,tile", [
+    (256, 128, 64, "banded", (8, 16, 6, 10)),  # the int8 UNet-32's decoder inputs at config 2's 512^2 tiles
+    (128, 64, 128, "banded", (8, 32, 6, 18)),
+    (64, 32, 256, "banded", (8, 64, 6, 34)),
+    (128, 0, 32, "banded", (8, 32, 6, 17)),  # the SEResNeXt50-FPN's x2 upsamples at 1024^2
+    (48, 16, 20, "banded", (8, 40, 6, 20)),
+    (3, 5, 64, "v1", None),
+    (4, 4, 64, "v4", None),
+    (16, 4, 64, "v4", None),
+])
+def test_upsample_route_rule(c, cs, size, route, tile):
+    """The route rule and the banded tile, on the CPU: every main-path call on
+    ``banded``; a tile is the smem-sized band x strip of ``_band_tile``."""
+    mh, mw, _ = TQU._q_upsample_matrices(size, size, 2 * size, 2 * size)
+    assert QOPS._upsample_route(c, cs, (0, 16 * 7, 32), mh, mw) == (route, tile)
+    if route == "banded":  # 8 bytes off a 16-byte boundary: the per-pixel kernel, 4 channels a thread
+        assert QOPS._upsample_route(c, cs, (0, 8), mh, mw) == ("v4", None)
+
+
+def test_band_tile_shrinks_to_fit_and_hands_over_what_never_fits():
+    mh, mw, _ = TQU._q_upsample_matrices(64, 64, 128, 128)
+    rows, cols, rw, ww = QOPS._band_tile(4096, mh, mw)
+    assert 16 + 16 * (rows + cols) + (rw + rows) * ww * 4096 <= QOPS._BAND_SMEM and cols < 8
+    wide = np.zeros((8, 4096), np.int8)  # every output row reaches both ends of a 4096-wide input
+    wide[:, 0] = wide[:, -1] = 1
+    assert QOPS._tap_span(wide, 1) == 4096 and QOPS._band_tile(64, wide, wide) is None
+    assert QOPS._upsample_route(64, 0, (0,), wide, wide) == ("v4", None)
 
 
 def test_q_upsample_refuses_a_row_of_three_taps():
