@@ -288,14 +288,23 @@ INT8_CHECK_BATCH, INT8_CAL_TILES = 16, 4
 INT8_PLAIN_CHUNK = 16  # samples per call of the float64 plain versions and of the im2col for torch._int_mm
 INT8_INT_MM_BYTES = 40 * 2**30  # the largest im2col + int32 product the torch._int_mm yardstick may allocate
 INT8_SIZE, INT8_CAL_IMAGES = 1024, 2
+# calls per timing window of Q1 and its torch._int_mm yardstick at each shape: the first call's host latency
+# (~60 us on the H100 machine, most of it the Python wrapper) is spread over them
+INT8_Q1_REPS = 10
 # The int8 UNet-32 against the bf16 fused path (relative RMS).  seed_weights' He-normal weights with BN statistics
 # lose more to the shift-only requant over 15 convs than flax's default init (the JAX bench's 0.0246): this phase
 # measures ~0.105 on the calibration tiles, with the integer path bit-equal to the JAX package's given its ranges
 # (tests/test_torch_quantized.py).  A broken integer path lands near 1.
 INT8_PTQ_RMS = 0.15
-INT8_KINDS = (("Q1 (int8 conv)", r"qconv_kernel|qconv_wgmma_kernel"),
+INT8_KINDS = (("Q1 (int8 conv)", r"qconv_kernel|qconv_wgmma_kernel|qconv_gemm_kernel"),
               ("Q2 (int8 upsample and decoder input)", r"q_upsample_band_kernel|q_upsample_kernel"),
               ("K1", r"grid_merge"), ("cat", r"CatArray"), ("max pooling (torch.maximum)", r"maximum|max_"))
+# and the int8 SEResNeXt50-FPN's: Q1 by kernel (the 1x1 and grouped routes are qconv_gemm_kernel<NT, MW, taps, banded>)
+ENCDEC_KINDS = (("Q1 gemm_wgmma (1x1)", r"qconv_gemm_kernel<\d+, ?\d+, ?1,"),
+                ("Q1 grouped_wgmma", r"qconv_gemm_kernel<\d+, ?\d+, ?9,"),
+                ("Q1 tma_wgmma (3x3)", r"qconv_wgmma_kernel"), ("Q1 mma.sync (qconv_kernel)", r"qconv_kernel"),
+                ("Q2", r"q_upsample"), ("max pooling (torch.maximum)", r"maximum|max_"),
+                ("SE (float)", r"gemm|gemv|reduce|mean|sigmoid"))
 # Phase 17: training (slice F).  Config 3's model (SEResNeXt50-FPN(128), 19 classes) trained at config 4's shape:
 # batches of 8 x 3 x 1024^2, so the logits are config 4's [8, 19, 1024, 1024]; CE-focal + 0.5 Lovasz-Softmax
 TRAIN_BATCH, TRAIN_SIZE = 8, 1024
@@ -500,9 +509,11 @@ def phase_build():
         counts = _sass_counts(sass, "conv3x3_wgmma_kernel", ("HGMMA", "UTMALDG", "UBLKCP"))
         log(f"[1] SASS of the {counts.pop('functions')} wgmma conv kernels (cuobjdump -sass): "
             + ", ".join(f"{op} {n}" for op, n in counts.items()))
-        counts = _sass_counts(sass, "qconv_wgmma_kernel", ("IGMMA", "UTMALDG", "UTMASTG", "UBLKCP"))
-        log(f"[1] SASS of the {counts.pop('functions')} Q1 wgmma kernels (cuobjdump -sass): "
-            + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        for name, what in (("qconv_wgmma_kernel", "Q1 3x3 wgmma kernels"),
+                           ("qconv_gemm_kernel", "Q1 1x1 and grouped wgmma kernels")):
+            counts = _sass_counts(sass, name, ("IGMMA", "UTMALDG", "UTMASTG", "UBLKCP"))
+            log(f"[1] SASS of the {counts.pop('functions')} {what} (cuobjdump -sass): "
+                + ", ".join(f"{op} {n}" for op, n in counts.items()))
         counts = _sass_counts(sass, "grid_merge_cell_kernel", ("UTMALDG", "LDG", "LDS", "STG"))
         log(f"[1] SASS of the {counts.pop('functions')} grid_merge_cell_kernel instances (cuobjdump -sass): "
             + ", ".join(f"{op} {n}" for op, n in counts.items()))
@@ -2184,21 +2195,29 @@ def _by_chunks(fn, x, *args, **kwargs):
 
 
 def _int_mm_ms(x, weight, stride, padding):
-    """One ``torch._int_mm`` (cuBLASLt int8 -> int32) on the im2col of x with
-    the same weights: the yardstick where the shape allows it (groups 1).
-    The im2col is made (in batch chunks) before the timing and is not in it;
-    K and N are padded to multiples of 8 as ``_int_mm`` needs."""
+    """(ms, what was timed) of one ``torch._int_mm`` (cuBLASLt int8 ->
+    int32) computing the conv's accumulator with the same weights: for a 1x1
+    stride-1 conv on x's own channels_last storage viewed as [B*H*W, C_in]
+    (the same product, with nothing else to do); else on the im2col of x,
+    made (in batch chunks) before the timing and not in it, K and N padded to
+    multiples of 8 as ``_int_mm`` needs.  (None, why) where no single call
+    computes the conv (groups > 1) or it does not fit."""
     if weight.groups != 1:
-        return None
-    b, c_out = x.shape[0], weight.weight.shape[0]
+        return None, "groups > 1: no single library call"
+    b, c_in, c_out = x.shape[0], x.shape[1], weight.weight.shape[0]
     kh, kw = weight.weight.shape[2:]
     top, bottom, left, right = padding
+    if (kh, kw, stride, top, bottom, left, right) == (1, 1, 1, 0, 0, 0, 0) and c_in % 8 == 0 and c_out % 8 == 0:
+        a = x.permute(0, 2, 3, 1).reshape(-1, c_in)  # a view: the storage of a channels_last tensor
+        w = weight.weight.reshape(c_out, c_in)
+        how = "on x's storage as [B*H*W, C_in], no im2col"
+        return cuda_ms(lambda: torch._int_mm(a, w.t()), reps=INT8_Q1_REPS), how
     ho = (x.shape[2] + top + bottom - kh) // stride + 1
     wo = (x.shape[3] + left + right - kw) // stride + 1
     k, n = x.shape[1] * kh * kw, -(-c_out // 8) * 8
     if b * ho * wo * (-(-k // 8) * 8 + 4 * n) > INT8_INT_MM_BYTES:
         log(f"[16]   torch._int_mm not timed: its operands would pass {INT8_INT_MM_BYTES / 2**30:.0f} GiB")
-        return None
+        return None, "not timed"
     a = torch.zeros(b * ho * wo, -(-k // 8) * 8, dtype=torch.int8, device=x.device)
     for i in range(0, b, INT8_PLAIN_CHUNK):
         cols = F.unfold(F.pad(x[i:i + INT8_PLAIN_CHUNK].half(), (left, right, top, bottom)), (kh, kw),
@@ -2208,19 +2227,42 @@ def _int_mm_ms(x, weight, stride, padding):
     w = torch.zeros(n, a.shape[1], dtype=torch.int8, device=x.device)
     w[:c_out, :k] = weight.weight.reshape(c_out, -1)
     try:
-        return cuda_ms(lambda: torch._int_mm(a, w.t()), reps=3)
+        return cuda_ms(lambda: torch._int_mm(a, w.t()), reps=INT8_Q1_REPS), "on the im2col, im2col not timed"
     except RuntimeError as exc:
         log(f"[16]   torch._int_mm refused [{a.shape[0]}, {a.shape[1]}] x [{a.shape[1]}, {n}]: {exc}")
-        return None
+        return None, "refused"
 
 
-def _check_q1(what: str, timed: bool, with_k2: bool = False):
+def _q1_class(kh: int, kw: int, stride: int, groups: int, ci_pg: int) -> str:
+    """The class of conv a Q1 call belongs to, by its shape."""
+    if (kh, kw) == (1, 1):
+        return f"1x1 stride {stride}"
+    if groups > 1:
+        return f"grouped 3x3 width {ci_pg} stride {stride}"
+    return f"{kh}x{kw} stride {stride}" + (" (stem)" if ci_pg <= 4 else "")
+
+
+def _q1_expected_routes(kh: int, kw: int, stride: int, groups: int, padding) -> tuple:
+    """The routes the int8 forwards' convs must take since the 1x1 and grouped
+    routes exist: the 3x3 stride-1 pad-1 groups-1 convs a 3x3 wgmma route, the
+    1x1 and grouped 3x3 convs theirs, the 7x7 stem the mma.sync kernel's
+    byte gather; () where the phase expects nothing."""
+    if (kh, kw, stride, groups) == (3, 3, 1, 1) and tuple(padding) == (1, 1, 1, 1):
+        return "tma_wgmma", "ld_wgmma"
+    if (kh, kw, groups) == (1, 1, 1):
+        return ("gemm_wgmma",)
+    if (kh, kw) == (3, 3) and groups > 1:
+        return ("grouped_wgmma",)
+    return ("mma_v1",) if (kh, kw) == (7, 7) else ()
+
+
+def _check_q1(what: str, timed: bool, with_k2: bool = False, strict: bool = True):
     """A check for ``_checked_calls("qconv2d", ...)``: Q1 against
     ``qconv2d_reference`` bit for bit on the call's own inputs and, if
     ``timed``, Q1's time beside its bound, its plain version,
     ``torch._int_mm`` and (with_k2: the UNet's 3x3 stride-1 shapes) the bf16
-    K2 at the same shape.  A 3x3 stride-1 pad-(1, 1, 1, 1) groups-1 call
-    that took an ``mma_*`` route fails it."""
+    K2 at the same shape.  With ``strict``, a call that took another route
+    than :func:`_q1_expected_routes` names fails it."""
     from pytorch_toolbelt_tpu_torch.ops import conv3x3, pack_conv3x3_weights, qconv2d, qconv2d_reference
 
     def check(args, kwargs):
@@ -2239,10 +2281,11 @@ def _check_q1(what: str, timed: bool, with_k2: bool = False):
         if got.dtype != want.dtype or got.shape != want.shape or err != 0:
             raise AssertionError(f"{what}: qconv2d {shape} disagrees with qconv2d_reference (max |err| {err})")
         del want
-        wgmma_shape = (kh, kw, stride, weight.groups) == (3, 3, 1, 1) and tuple(padding) == (1, 1, 1, 1)
-        if wgmma_shape and not route.endswith("wgmma"):
-            raise AssertionError(f"{what}: qconv2d {shape} took the route {route}, not a wgmma route")
-        record = {"max_abs_err": err, "route": route, "shape": shape, "wgmma_shape": wgmma_shape}
+        expected = _q1_expected_routes(kh, kw, stride, weight.groups, padding)
+        if strict and expected and route not in expected:
+            raise AssertionError(f"{what}: qconv2d {shape} took the route {route}, not {' or '.join(expected)}")
+        record = {"max_abs_err": err, "route": route, "shape": shape,
+                  "cls": _q1_class(kh, kw, stride, weight.groups, ci_pg)}
         if not timed:
             return record
         ho, wo = got.shape[2:]
@@ -2250,11 +2293,10 @@ def _check_q1(what: str, timed: bool, with_k2: bool = False):
         ops = 2.0 * b * ho * wo * c_out * ci_pg * kh * kw
         del got
         record["bound"], record["bound_by"] = bound_ms(nbytes, ops, INT8_PEAK)
-        record["ms"] = cuda_ms(lambda: qconv2d(*args, **kwargs), reps=3)
+        record["ms"] = cuda_ms(lambda: qconv2d(*args, **kwargs), reps=INT8_Q1_REPS)
         record["plain_ms"] = cuda_ms(plain, reps=1, windows=1, warmup=0)
-        record["library_ms"] = lib = _int_mm_ms(x, weight, stride, padding)
-        record["lib"] = ("groups > 1: no single library call" if weight.groups != 1 else "not timed" if lib is None
-                         else f"{lib:.3f} ms")
+        record["library_ms"], how = _int_mm_ms(x, weight, stride, padding)
+        record["lib"] = how if record["library_ms"] is None else f"{record['library_ms']:.3f} ms {how}"
         record["ops"] = ops
         if with_k2 and (kh, kw, stride, weight.groups) == (3, 3, 1, 1):
             xb = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
@@ -2359,39 +2401,74 @@ def _q1_totals(seen: dict, what: str) -> dict:
     """Q1's checked shapes of one run: a log line each, and the run's sums
     (each shape's time times its calls)."""
     total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "operations": 0.0, "library_ms": 0.0, "k2_ms": 0.0,
-             "max_abs_err": 0, "shapes": len(seen), "calls": sum(n for _, n in seen.values())}
+             "max_abs_err": 0, "shapes": len(seen), "calls": sum(n for _, n in seen.values()), "routes": {}}
     for r, n in seen.values():
         total["max_abs_err"] = max(total["max_abs_err"], r["max_abs_err"])
         if "ms" not in r:
             log(f"[16] qconv2d {what} {r['shape']} (x{n}) route {r['route']}: bit-equal to qconv2d_reference")
             continue
         ms = r["ms"]
-        for key in ("ms", "plain_ms", "k2_ms"):
-            total[key] += n * r.get(key, 0.0)
-        total[r["bound_by"]] += n * r["bound"]
-        total["library_ms"] = None if r["library_ms"] is None or total["library_ms"] is None else \
-            total["library_ms"] + n * r["library_ms"]
+        route = total["routes"].setdefault(r["route"], {"calls": 0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0.0,
+                                                        "operations": 0.0, "library_ms": 0.0})
+        for sums in (total, route):
+            for key in ("ms", "plain_ms", "k2_ms"):
+                if key in sums:
+                    sums[key] += n * r.get(key, 0.0)
+            sums[r["bound_by"]] += n * r["bound"]
+            sums["library_ms"] = None if r["library_ms"] is None or sums["library_ms"] is None else \
+                sums["library_ms"] + n * r["library_ms"]
+        route["calls"] += n
         k2 = f"; bf16 K2 at the shape {r['k2_ms']:.3f} ms" if "k2_ms" in r else ""
         log(f"[16] qconv2d {what} {r['shape']} (x{n}) route {r['route']}: bit-equal to qconv2d_reference; kernel "
             f"{ms} ({r['ops'] / ms / 1e9:.1f} TOP/s), bound {r['bound']:.3f} ms ({r['bound_by']}) = "
             f"{r['bound'] / ms:.1%} of the kernel; plain version (in batch chunks of {INT8_PLAIN_CHUNK}) "
-            f"{r['plain_ms']:.3f} ms; torch._int_mm on the im2col (im2col not timed) {r['lib']}{k2}")
+            f"{r['plain_ms']:.3f} ms; torch._int_mm {r['lib']}{k2}")
     return total
 
 
-def _check_q1_routes(seen: dict, by_route: dict, what: str) -> None:
-    """A counted run's Q1 launches by route against the checked run's calls:
-    the 3x3 stride-1 pad-1 groups-1 calls on the wgmma routes, the others on
-    ``mma_*``."""
-    wgmma = sum(n for r, n in seen.values() if r["wgmma_shape"])
-    mma = sum(n for r, n in seen.values() if not r["wgmma_shape"])
-    got = {"wgmma": by_route["tma_wgmma"] + by_route["ld_wgmma"],
-           "mma": sum(n for route, n in by_route.items() if route.startswith("mma"))}
-    if got != {"wgmma": wgmma, "mma": mma}:
-        raise AssertionError(f"{what}: Q1 launched {by_route}, the checked run made {wgmma} calls of wgmma shapes "
-                             f"and {mma} others")
-    log(f"[16] qconv2d {what}: {wgmma} calls of 3x3 stride-1 pad-1 groups-1 shapes, all on the wgmma routes "
-        f"({by_route['tma_wgmma']} tma_wgmma, {by_route['ld_wgmma']} ld_wgmma); {mma} others on mma_*")
+def _q1_classes(seen: dict, what: str, smi: str) -> dict:
+    """Q1's timed calls of one run summed by class of conv (each shape's time
+    times its calls), a log line each: {class: sums}."""
+    classes = {}
+    for r, n in seen.values():
+        c = classes.setdefault(r["cls"], {"calls": 0, "ms": 0.0, "bound": 0.0, "bytes": 0.0, "operations": 0.0,
+                                          "plain_ms": 0.0, "library_ms": 0.0, "library_calls": 0, "routes": {}})
+        c["calls"] += n
+        c["routes"][r["route"]] = c["routes"].get(r["route"], 0) + n
+        if "ms" not in r:
+            continue
+        c["ms"] += n * r["ms"]
+        c["bound"] += n * r["bound"]
+        c[r["bound_by"]] += n * r["bound"]
+        c["plain_ms"] += n * r["plain_ms"]
+        if r["library_ms"] is not None:
+            c["library_ms"] += n * r["library_ms"]
+            c["library_calls"] += n
+    for name, c in sorted(classes.items()):
+        lib = (f"{c['library_ms']:.3f} ms ({c['library_calls']} of {c['calls']} calls)" if c["library_calls"]
+               else "none")
+        log(f"[16] Q1 by class, {what}: {name}: {c['calls']} calls on {c['routes']}: kernel {c['ms']:.3f} ms, bound "
+            f"{c['bound']:.3f} ms (bytes {c['bytes']:.3f}, operations {c['operations']:.3f}) = "
+            f"{c['bound'] / c['ms'] if c['ms'] else 0.0:.1%} of the kernel; plain version {c['plain_ms']:.2f} ms; "
+            f"torch._int_mm {lib} ({smi})")
+    return classes
+
+
+def _check_q1_routes(seen: dict, by_route: dict, what: str, stems_alone_on_mma: bool = False) -> None:
+    """A counted run's Q1 launches by route against the routes the checked
+    run's calls took (each held to its class's routes by ``_check_q1``);
+    with ``stems_alone_on_mma``, the mma.sync kernel must have run the 7x7
+    stems and nothing else."""
+    want = dict.fromkeys(by_route, 0)
+    for r, n in seen.values():
+        want[r["route"]] += n
+    if dict(by_route) != want:
+        raise AssertionError(f"{what}: Q1 launched {by_route}, the checked run's calls took {want}")
+    mma = {route: n for route, n in by_route.items() if route.startswith("mma") and n}
+    stems = sum(n for r, n in seen.values() if r["cls"].endswith("(stem)"))
+    if stems_alone_on_mma and mma != {"mma_v1": stems}:
+        raise AssertionError(f"{what}: the mma.sync kernel ran {mma}, not the {stems} stems alone")
+    log(f"[16] qconv2d {what}: launches by route {dict(by_route)}, as the checked run's calls took them")
 
 
 def _q2_totals(seen: dict) -> dict:
@@ -2458,14 +2535,113 @@ def _rel_rms(got, ref) -> float:
     return float((got - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
 
 
+def _add_counts(total: dict, counts: dict) -> dict:
+    """Launch counts by kernel and by route, summed."""
+    for key, value in counts.items():
+        if isinstance(value, dict):
+            by_route = total.setdefault(key, dict.fromkeys(value, 0))
+            for route, n in value.items():
+                by_route[route] = by_route.get(route, 0) + n
+        else:
+            total[key] = total.get(key, 0) + value
+    return total
+
+
+def phase_int8_encdec(dev, smi, strict: bool = True):
+    """[16.5] The int8 SEResNeXt50-FPN(128), 19 classes, through
+    ``quantize_encoder_decoder_inference``: one 1024^2 forward at batch 1 and
+    one call of config 3's d4 + multiscale TTA (the model on its batch-8 d4
+    views at 1024^2 and 768^2), in each of which Q1 is held bit for bit
+    against its plain version at the first call of every distinct shape and
+    timed there (Q2 too in the forward), Q1's times summed by class of conv;
+    then a counted forward and a counted TTA call, whose launches by route
+    must be the checked calls' (with ``strict``, each call on its class's
+    route: only the 7x7 stem on ``mma_v1``); the forward and the TTA timed;
+    shapes, finite values and the distance to the fp32 forward.  Returns the
+    counted runs' launches, Q1's sums of the forward and of the TTA call, and
+    Q2's of the forward."""
+    from pytorch_toolbelt_tpu_torch.inference import MultiscaleTTA, d4_image2mask
+    from pytorch_toolbelt_tpu_torch.zoo import quantize_encoder_decoder_inference
+
+    model3 = int8_config3_model(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    cal_images = torch.rand(INT8_CAL_IMAGES, 3, INT8_SIZE, INT8_SIZE, device=dev, generator=gen)
+    x = torch.rand(1, 3, INT8_SIZE, INT8_SIZE, device=dev, generator=gen)
+    t0 = time.perf_counter()
+    q3 = quantize_encoder_decoder_inference(model3, cal_images)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    del cal_images
+    with _checked_calls("qconv2d", _check_q1("SEResNeXt50-FPN", True, strict=strict)) as convs, \
+            _checked_calls("q_upsample", _check_q2(True)) as ups:
+        q3(x)
+    torch.cuda.synchronize()
+    q1_3 = _q1_totals(convs, "SEResNeXt50-FPN")
+    _q1_classes(convs, "one forward at batch 1", smi)
+    q2_3 = _q2_totals(ups)
+    _reset_int8_counts()
+    got = q3(x)
+    torch.cuda.synchronize()
+    counts3 = _int8_counts()
+    _check_q1_routes(convs, counts3["qconv2d_by_route"], "SEResNeXt50-FPN forward", strict)
+    del convs, ups
+    with torch.no_grad():
+        ref = model3(x)
+    rms = _rel_rms(got, ref)
+    ok = got.shape == (1, CLASSES, INT8_SIZE, INT8_SIZE) and bool(torch.isfinite(got).all())
+    ms = cuda_ms(lambda: q3(x), reps=3)
+    f_ms = cuda_ms(lambda: model3(x), reps=3)
+    _log_profile_by_kind("[16] profiled int8 SEResNeXt50-FPN forward", lambda: q3(x), ENCDEC_KINDS, smi, top=8)
+
+    tta = MultiscaleTTA(lambda xi: d4_image2mask(q3, xi), size_offsets=MS_OFFSETS)
+    with _checked_calls("qconv2d", _check_q1("SEResNeXt50-FPN TTA", True, strict=strict)) as tta_convs:
+        tta(x)
+    torch.cuda.synchronize()
+    q1_tta = _q1_totals(tta_convs, "SEResNeXt50-FPN TTA")
+    _q1_classes(tta_convs, "one call of config 3's TTA (batch-8 views at 1024^2 and 768^2)", smi)
+    _reset_int8_counts()
+    out = tta(x)
+    torch.cuda.synchronize()
+    counts_tta = _int8_counts()
+    _check_q1_routes(tta_convs, counts_tta["qconv2d_by_route"], "config 3's TTA call", strict)
+    del tta_convs
+    t0 = time.perf_counter()
+    for _ in range(3):
+        out = tta(x)
+    torch.cuda.synchronize()
+    tta_ms = (time.perf_counter() - t0) / 3 * 1e3
+    _log_profile_by_kind("[16] profiled config-3 TTA call (int8)", lambda: tta(x), ENCDEC_KINDS, smi, top=8)
+    ok = ok and out.shape == (1, CLASSES, INT8_SIZE, INT8_SIZE) and bool(torch.isfinite(out).all())
+    log(f"[16] int8 SEResNeXt50-FPN(128), {CLASSES} classes (quantize_encoder_decoder_inference, requant mul, bias "
+        f"correction, calibrated in {cal_s:.1f} s on {INT8_CAL_IMAGES} images of {INT8_SIZE}^2): its {q1_3['calls']} "
+        f"convs ({q1_3['shapes']} distinct shapes) bit-equal to qconv2d_reference, {q1_3['ms']:.2f} ms of Q1 per "
+        f"forward against a bound of {q1_3['bytes'] + q1_3['operations']:.2f} ms; launches per forward: Q1 "
+        f"{counts3['qconv2d_by_route']}, Q2 {counts3['q_upsample_by_route']} ({smi})")
+    log(f"[16] int8 SEResNeXt50-FPN(128), config 3's TTA: its {q1_tta['calls']} convs ({q1_tta['shapes']} distinct "
+        f"shapes) bit-equal to qconv2d_reference, {q1_tta['ms']:.2f} ms of Q1 per call against a bound of "
+        f"{q1_tta['bytes'] + q1_tta['operations']:.2f} ms; launches per call: Q1 {counts_tta['qconv2d_by_route']}, "
+        f"Q2 {counts_tta['q_upsample_by_route']} ({smi})")
+    log(f"[16] int8 SEResNeXt50-FPN(128): {ms} per [1, 3, {INT8_SIZE}, {INT8_SIZE}] forward (the fp32 module "
+        f"{f_ms}); config 3's d4 + multiscale {MS_OFFSETS} TTA {tta_ms:.1f} ms per call; rel RMS against the fp32 "
+        f"forward {rms:.4f}; {'ok' if ok else 'FAIL'} ({smi})")
+    if not ok:
+        raise AssertionError("the int8 SEResNeXt50-FPN gave a wrong shape or non-finite values")
+    for counts in (counts3, counts_tta):
+        if counts["q_upsample_by_route"]["banded"] != counts["q_upsample"]:
+            raise AssertionError(f"the SEResNeXt50-FPN's upsamples took {counts['q_upsample_by_route']}")
+    del model3, q3
+    torch.cuda.empty_cache()
+    return _add_counts(counts3, counts_tta), q1_3, q1_tta, q2_3
+
+
 def phase_int8(dev, smi, model, fused, t_start):
     """Slice E: the int8 UNet-32 forward against its plain version and the
     bf16 fused path; config 2 in int8 at 5000^2, whose first run holds Q1
     and Q2 bit for bit against their plain versions at each of its shapes,
     on its own data, and times them; the int8 SEResNeXt50-FPN(128) at 1024^2
-    (Q1 and Q2 held and timed the same way) and under config 3's TTA."""
-    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, MultiscaleTTA, d4_image2mask, tiled_apply_d4_tta
-    from pytorch_toolbelt_tpu_torch.zoo import quantize_encoder_decoder_inference, quantize_unet_inference
+    and under config 3's TTA (:func:`phase_int8_encdec`)."""
+    from pytorch_toolbelt_tpu_torch.inference import ImageSlicer, tiled_apply_d4_tta
+    from pytorch_toolbelt_tpu_torch.zoo import quantize_unet_inference
     from pytorch_toolbelt_tpu_torch.zoo.quantized_unet import _build_int8_unet, _calibrate_unet
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -2584,65 +2760,12 @@ def phase_int8(dev, smi, model, fused, t_start):
     del image
     torch.cuda.empty_cache()
 
-    # [16.5] the int8 SEResNeXt50-FPN(128), 19 classes: calibrate, Q1 at its shapes, time, fidelity
-    model3 = int8_config3_model(dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
-    cal_images = torch.rand(INT8_CAL_IMAGES, 3, INT8_SIZE, INT8_SIZE, device=dev, generator=gen)
-    x = torch.rand(1, 3, INT8_SIZE, INT8_SIZE, device=dev, generator=gen)
-    t0 = time.perf_counter()
-    q3 = quantize_encoder_decoder_inference(model3, cal_images)
-    torch.cuda.synchronize()
-    cal_s = time.perf_counter() - t0
-    del cal_images
-    with _checked_calls("qconv2d", _check_q1("SEResNeXt50-FPN", True)) as convs, \
-            _checked_calls("q_upsample", _check_q2(True)) as ups:
-        q3(x)
-    torch.cuda.synchronize()
-    q1_3 = _q1_totals(convs, "SEResNeXt50-FPN")
-    q2_3 = _q2_totals(ups)
-    _reset_int8_counts()
-    got = q3(x)
-    torch.cuda.synchronize()
-    counts3 = _int8_counts()
-    _check_q1_routes(convs, counts3["qconv2d_by_route"], "SEResNeXt50-FPN forward")
-    del convs, ups
-    with torch.no_grad():
-        ref = model3(x)
-    rms = _rel_rms(got, ref)
-    ok = got.shape == (1, CLASSES, INT8_SIZE, INT8_SIZE) and bool(torch.isfinite(got).all())
-    ms = cuda_ms(lambda: q3(x), reps=3)
-    f_ms = cuda_ms(lambda: model3(x), reps=3)
-    tta = MultiscaleTTA(lambda xi: d4_image2mask(q3, xi), size_offsets=MS_OFFSETS)
-    tta(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        out = tta(x)
-    torch.cuda.synchronize()
-    tta_ms = (time.perf_counter() - t0) / 3 * 1e3
-    ok = ok and out.shape == (1, CLASSES, INT8_SIZE, INT8_SIZE) and bool(torch.isfinite(out).all())
-    log(f"[16] int8 SEResNeXt50-FPN(128), {CLASSES} classes (quantize_encoder_decoder_inference, requant mul, bias "
-        f"correction, calibrated in {cal_s:.1f} s on {INT8_CAL_IMAGES} images of {INT8_SIZE}^2): its {q1_3['calls']} "
-        f"convs ({q1_3['shapes']} distinct shapes) bit-equal to qconv2d_reference, {q1_3['ms']:.2f} ms of Q1 per "
-        f"forward against a bound of {q1_3['bytes'] + q1_3['operations']:.2f} ms; launches per forward: Q1 "
-        f"{counts3['qconv2d_by_route']}, Q2 {counts3['q_upsample_by_route']} ({smi})")
-    log(f"[16] int8 SEResNeXt50-FPN(128): {ms} per [1, 3, {INT8_SIZE}, {INT8_SIZE}] forward (the fp32 module "
-        f"{f_ms}); config 3's d4 + multiscale {MS_OFFSETS} TTA {tta_ms:.1f} ms per call; rel RMS against the fp32 "
-        f"forward {rms:.4f}; {'ok' if ok else 'FAIL'} ({smi})")
-    if not ok:
-        raise AssertionError("the int8 SEResNeXt50-FPN gave a wrong shape or non-finite values")
-    if counts3["q_upsample_by_route"]["banded"] != counts3["q_upsample"]:
-        raise AssertionError(f"the SEResNeXt50-FPN's upsamples took {counts3['q_upsample_by_route']}")
-    for key in INT8_KERNELS:
-        launches[key] = launches.get(key, 0) + counts3[key]
-        by_route = launches.setdefault(f"{key}_by_route", dict.fromkeys(counts3[f"{key}_by_route"], 0))
-        for route, n in counts3[f"{key}_by_route"].items():
-            by_route[route] += n
+    # [16.5] the int8 SEResNeXt50-FPN(128) at batch 1 and under config 3's TTA
+    counts3, q1_3, q1_tta, q2_3 = phase_int8_encdec(dev, smi)
+    _add_counts(launches, counts3)
     if min(launches[key] for key in INT8_KERNELS) == 0:
         raise AssertionError(f"a kernel of the int8 paths was never launched: {launches}")
-    del model3, q3
-    torch.cuda.empty_cache()
-    max_err = max(q1["max_abs_err"], q1_3["max_abs_err"])
+    max_err = max(q1["max_abs_err"], q1_3["max_abs_err"], q1_tta["max_abs_err"])
     kernels = [
         {"name": "qconv2d", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/qconv_wgmma.cu",
          "mma_source": "pytorch_toolbelt_tpu_torch/csrc/qconv.cu",
@@ -2652,7 +2775,20 @@ def phase_int8(dev, smi, model, fused, t_start):
          "bound_by": "bytes" if q1["bytes"] >= q1["operations"] else "operations", "library_ms": q1["library_ms"],
          "launches_by_route": launches["qconv2d_by_route"], "k2_bf16_ms": q1["k2_ms"],
          "encdec_ms": q1_3["ms"], "encdec_bound_ms": q1_3["bytes"] + q1_3["operations"],
-         "encdec_library_ms": q1_3["library_ms"]},
+         "encdec_library_ms": q1_3["library_ms"], "encdec_tta_ms": q1_tta["ms"],
+         "encdec_tta_bound_ms": q1_tta["bytes"] + q1_tta["operations"]},
+    ]
+    for route in ("gemm_wgmma", "grouped_wgmma"):  # the routes of csrc/qconv_gemm.cu, at the forward's and TTA's calls
+        r, t = q1_3["routes"][route], q1_tta["routes"][route]
+        kernels.append({
+            "name": f"qconv2d ({route})", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/qconv_gemm.cu",
+            "replaces": "pytorch_toolbelt_tpu/zoo/quantized_encdec.py:572",
+            "launches": launches["qconv2d_by_route"][route],
+            "max_abs_err": max(q1_3["max_abs_err"], q1_tta["max_abs_err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bytes"] + r["operations"],
+            "bound_by": "bytes" if r["bytes"] >= r["operations"] else "operations", "library_ms": r["library_ms"],
+            "tta_ms": t["ms"], "tta_bound_ms": t["bytes"] + t["operations"], "tta_library_ms": t["library_ms"]})
+    kernels += [
         {"name": "q_upsample", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/q_upsample.cu",
          "replaces": "pytorch_toolbelt_tpu/zoo/quantized_unet.py:175", "launches": launches["q_upsample"],
          "max_abs_err": max(q2["max_abs_err"], q2_3["max_abs_err"]), "ms": q2["alone_ms"],

@@ -36,7 +36,10 @@
 // each input pixel from L2 for every tap and every N block and runs mma.sync,
 // which reaches a fraction of the tensor cores' rate.  The 3x3 stride-1 pad-1
 // groups-1 convs (every conv of the int8 UNet, the FPN's 3x3 convs) take the
-// wgmma kernel of qconv_wgmma.cu instead (routes tma_wgmma and ld_wgmma);
+// wgmma kernel of qconv_wgmma.cu instead (routes tma_wgmma and ld_wgmma), the
+// 1x1 and grouped 3x3 convs of the ResNet-family encoders that of
+// qconv_gemm.cu (gemm_wgmma, grouped_wgmma); what stays here is the 7x7
+// stem, the dense strided 3x3 convs and whatever is not 16-byte aligned.
 // ops/quantized.py `_conv_route` picks the route and ptt_qconv2d checks it.
 
 #include <cuda_runtime.h>
@@ -292,19 +295,26 @@ bool gather_fits(int vec, int C, int ci_pg, uintptr_t x_addr) {
   return vec == 1 || ((vec == 4 || vec == 16) && ci_pg % vec == 0 && C % vec == 0 && x_addr % vec == 0);
 }
 
-enum Route { MMA_V16 = 0, MMA_V4 = 1, MMA_V1 = 2, TMA_WGMMA = 3, LD_WGMMA = 4 };
+enum Route { MMA_V16 = 0, MMA_V4 = 1, MMA_V1 = 2, TMA_WGMMA = 3, LD_WGMMA = 4, GEMM_WGMMA = 5, GROUPED_WGMMA = 6 };
 
 }  // namespace
 
-// qconv_wgmma.cu: the wgmma routes.
+// qconv_wgmma.cu: the 3x3 stride-1 wgmma routes.
 int qconv2d_wgmma(int device, const void* x, const void* w, const void* bias, const void* p0, const void* p1, void* y,
                   int B, int H, int W, int cin, int cout, int nt, int mode, int relu, int tma, void* stream);
+// qconv_gemm.cu: the 1x1 and grouped 3x3 wgmma routes.
+int qconv2d_gemm_wgmma(int device, const void* x, const void* w, const void* bias, const void* p0, const void* p1,
+                       void* y, int B, int H, int W, int cin, int Ho, int Wo, int cout, int taps, int stride,
+                       int pad_top, int pad_left, int n_pad, int mode, int relu, void* stream);
 
 // `route` is the one ops/quantized.py `_conv_route` picked (the Route codes);
 // a call that does not fit it is refused.  For the mma routes w is packed as
-// [groups, n_pad, k_pad] with N tile bn; for the wgmma routes (3x3, stride 1,
-// pads 1, groups 1) as [NB, KC, 9, bn, 128].  Returns the cudaError_t of the
-// launch (0 on success).
+// [groups, n_pad, k_pad] with N tile bn; for tma_wgmma and ld_wgmma (3x3,
+// stride 1, pads 1, groups 1) as [NB, KC, 9, bn, 128]; for gemm_wgmma (1x1,
+// groups 1, stride 1 or 2, no padding) as [KC, n_pad, 128]; for grouped_wgmma
+// (3x3, C_in = C_out, groups of a width dividing 32, stride 1 or 2, pads
+// (1, 1, 1, 1) or at stride 2 (0, 1, 0, 1)) as [C / 128, 9, 32, 128].
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int ptt_qconv2d(int device, const void* x, const void* w, const void* bias, const void* p0,
                            const void* p1, void* y, int B, int H, int W, int C, int Ho, int Wo, int cout,
                            int groups, int kh, int kw, int stride, int pad_top, int pad_left, int k_pad,
@@ -314,6 +324,24 @@ extern "C" int ptt_qconv2d(int device, const void* x, const void* w, const void*
       return (int)cudaErrorInvalidValue;
     return qconv2d_wgmma(device, x, w, bias, p0, p1, y, B, H, W, C, cout, bn, mode, relu, route == TMA_WGMMA,
                          stream);
+  }
+  if (route == GEMM_WGMMA) {
+    if (groups != 1 || kh != 1 || kw != 1 || (stride != 1 && stride != 2) || pad_top != 0 || pad_left != 0 ||
+        H <= 0 || W <= 0 || Ho != (H - 1) / stride + 1 || Wo != (W - 1) / stride + 1)
+      return (int)cudaErrorInvalidValue;
+    return qconv2d_gemm_wgmma(device, x, w, bias, p0, p1, y, B, H, W, C, Ho, Wo, cout, 1, stride, 0, 0, n_pad, mode,
+                              relu, stream);
+  }
+  if (route == GROUPED_WGMMA) {
+    // the pads are (1, 1, 1, 1), or (0, 1, 0, 1) at stride 2: the bottom and right ones are 1
+    const int ci_pg = groups > 0 ? C / groups : 0;
+    if (C <= 0 || groups < 2 || C % groups != 0 || cout != C || 32 % ci_pg != 0 || kh != 3 || kw != 3 ||
+        (stride != 1 && stride != 2) || pad_top != pad_left || pad_top < 0 || pad_top > 1 ||
+        (stride == 1 && pad_top != 1) || H + pad_top < 2 || W + pad_left < 2 ||
+        Ho != (H + pad_top - 2) / stride + 1 || Wo != (W + pad_left - 2) / stride + 1)
+      return (int)cudaErrorInvalidValue;
+    return qconv2d_gemm_wgmma(device, x, w, bias, p0, p1, y, B, H, W, C, Ho, Wo, cout, 9, stride, pad_top, pad_left,
+                              0, mode, relu, stream);
   }
   const ptt::DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return (int)guard.error();

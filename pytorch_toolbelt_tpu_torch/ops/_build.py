@@ -129,6 +129,8 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _library
+    if _library is not None:  # every launch asks: no lock once it is loaded
+        return _library
     with _lock:
         if _library is None:
             lib = ctypes.CDLL(str(build()))
@@ -150,5 +152,6 @@ def check(err: int, kernel: str) -> None:
 
 
 def stream_of(device) -> int:
-    """Handle of PyTorch's current CUDA stream on ``device``."""
+    """Handle of PyTorch's current CUDA stream on ``device`` (a device or its
+    index)."""
     return torch.cuda.current_stream(device).cuda_stream

@@ -7,11 +7,14 @@ preferred_element_type=int32)`` with an integer epilogue
 (``pytorch_toolbelt_tpu/zoo/quantized_unet.py:140``) and two int8 einsums
 against quantized interpolation matrices (``:175``), whose result the UNet's
 decoder joins to its skip (``:354-355``).  torch has neither on CUDA, so the
-port brings hand-written kernels: Q1 has two, ``csrc/qconv_wgmma.cu`` (a
+port brings hand-written kernels: Q1 has three, ``csrc/qconv_wgmma.cu`` (a
 TMA-fed ``wgmma`` s8 implicit GEMM for the 3x3 stride-1 pad-1 groups-1
-convs, routes ``tma_wgmma`` and ``ld_wgmma``) and ``csrc/qconv.cu`` (an
-``mma.sync`` s8 implicit GEMM for every other shape, routes ``mma_v16``,
-``mma_v4``, ``mma_v1``), both with the epilogue fused; Q2 is
+convs, routes ``tma_wgmma`` and ``ld_wgmma``), ``csrc/qconv_gemm.cu`` (the
+same machinery for the 1x1 convs, route ``gemm_wgmma``, and for the grouped
+3x3 convs as bands of block-diagonal 32-channel tiles, ``grouped_wgmma``)
+and ``csrc/qconv.cu`` (an ``mma.sync`` s8 implicit GEMM for every other
+shape, routes ``mma_v16``, ``mma_v4``, ``mma_v1``), all with the epilogue
+fused; Q2 is
 ``csrc/q_upsample.cu``: a banded kernel (route ``banded``: a block's tile of
 output rows and columns, its input in shared memory, each row-pass value
 computed once) and the per-pixel kernel for the other channel counts
@@ -32,6 +35,7 @@ raise.
 """
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -59,8 +63,11 @@ _MUL_SHIFT = 23
 _EPILOGUES = ("acc", "shift", "mul")
 _K_STEP = 32  # K bytes per mma.m16n8k32 step: the packed K is padded to it per group
 # Q1's routes; the index is the code ptt_qconv2d takes
-_CONV_ROUTES = ("mma_v16", "mma_v4", "mma_v1", "tma_wgmma", "ld_wgmma")
+_CONV_ROUTES = ("mma_v16", "mma_v4", "mma_v1", "tma_wgmma", "ld_wgmma", "gemm_wgmma", "grouped_wgmma")
 _WGMMA_CK = 128  # input channels per full K chunk of the wgmma routes: one 128-byte swizzle row
+_GEMM_N_PAD = 128  # gemm_wgmma's packed output channels are padded to a multiple of its widest N tile
+_BAND = 32  # channels of a band of grouped_wgmma: one k32 step, a whole number of groups
+_GROUPED_PADS = {1: ((1, 1, 1, 1),), 2: ((1, 1, 1, 1), (0, 1, 0, 1))}  # flax SAME at each stride
 # Q2's routes; the index is the code ptt_q_upsample takes
 _UPSAMPLE_ROUTES = ("banded", "v4", "v1")
 _BAND_ROWS = 8  # output rows per block of the banded route
@@ -76,7 +83,9 @@ class QConvWeight(NamedTuple):
     packed: torch.Tensor  # [groups, N_pad, K_pad] int8, for the mma routes
     groups: int
     tile_n: int  # output channels per block of the mma routes
-    wgmma: Optional[torch.Tensor] = None  # [NB, KC, 9, NT, 128] int8 for the wgmma routes (3x3, groups 1 only)
+    wgmma: Optional[torch.Tensor] = None  # [NB, KC, 9, NT, 128] int8 for tma_wgmma / ld_wgmma (3x3, groups 1)
+    gemm: Optional[torch.Tensor] = None  # [KC, N_pad, 128] int8 for gemm_wgmma (1x1, groups 1)
+    banded: Optional[torch.Tensor] = None  # [C / 128, 9, 32, 128] int8 for grouped_wgmma
 
 
 def _tile_n(co_pg: int) -> int:
@@ -89,7 +98,9 @@ def pack_qconv2d_weights(weight: torch.Tensor, groups: int = 1) -> QConvWeight:
     The packed tensor is [groups, N_pad, K_pad]: per group, output channel n
     and K index (dy * kw + dx) * ci_pg + c, zero padded to a multiple of 32 in
     K (so any channel count works, 3 and 4 included) and to the kernel's N
-    tile in N."""
+    tile in N.  Beside it, on the weights' device, the packing of the wgmma
+    route the shape can take: 3x3 groups 1 (:func:`_pack_wgmma`), 1x1 groups
+    1 (:func:`_pack_gemm`), grouped 3x3 in bands (:func:`_pack_banded`)."""
     if weight.dtype != torch.int8 or weight.ndim != 4:
         raise ValueError(f"pack_qconv2d_weights: weight must be int8 OIHW, got {weight.dtype} {tuple(weight.shape)}")
     c_out, ci_pg, kh, kw = weight.shape
@@ -102,10 +113,13 @@ def pack_qconv2d_weights(weight: torch.Tensor, groups: int = 1) -> QConvWeight:
                          device=weight.device)
     packed[:, :co_pg, :k] = weight.reshape(groups, co_pg, ci_pg, kh, kw).permute(0, 1, 3, 4, 2).reshape(groups, co_pg, k)
     wgmma = _pack_wgmma(weight) if (kh, kw, groups) == (3, 3, 1) else None
-    return QConvWeight(weight.contiguous(), packed.contiguous(), int(groups), tile_n, wgmma)
+    gemm = _pack_gemm(weight) if (kh, kw, groups) == (1, 1, 1) else None
+    banded = _pack_banded(weight, groups) if (kh, kw) == (3, 3) and _bands_fit(c_out, ci_pg, groups) else None
+    return QConvWeight(weight.contiguous(), packed.contiguous(), int(groups), tile_n, wgmma, gemm, banded)
 
 
-def _wgmma_chunks(c_in: int):
+@functools.lru_cache(maxsize=None)
+def _wgmma_chunks(c_in: int) -> tuple:
     """The K chunks of the wgmma routes as (first channel, width): 128
     channels each, then a remainder r as one 128-channel chunk (r > 96),
     64 + 32 (r > 64), 64 (r > 32) or 32, as ``csrc/qconv_wgmma.cu``
@@ -119,7 +133,7 @@ def _wgmma_chunks(c_in: int):
         chunks += [(c0, 64), (c0 + 64, 32)]
     elif r:
         chunks.append((c0, 64 if r > 32 else 32))
-    return chunks
+    return tuple(chunks)
 
 
 def _pack_wgmma(weight: torch.Tensor) -> torch.Tensor:
@@ -150,16 +164,101 @@ def _unpack_wgmma(packed: torch.Tensor, c_in: int, c_out: int) -> torch.Tensor:
                      dim=1)
 
 
-def _conv_route(c_in: int, ci_pg: int, kernel: Sequence[int], stride: int, padding: Sequence[int], groups: int,
+def _pack_gemm(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW int8 [C_out, C_in, 1, 1] -> [KC, N_pad, 128] int8 for
+    ``gemm_wgmma``: K chunk (:func:`_wgmma_chunks`), output channel (N_pad:
+    C_out padded to a multiple of 128, so the slab of an N tile of 64 or 128
+    channels is contiguous), the chunk's input channels in a 128-byte
+    row (zero past the chunk's width and past C_in) with the 128-byte
+    swizzle, as a wgmma B descriptor reads it."""
+    c_out, c_in = weight.shape[:2]
+    chunks = _wgmma_chunks(c_in)
+    w = torch.zeros(len(chunks), -(-c_out // _GEMM_N_PAD) * _GEMM_N_PAD, _WGMMA_CK, dtype=torch.int8,
+                    device=weight.device)
+    for k, (c0, width) in enumerate(chunks):
+        n = min(width, c_in - c0)
+        w[k, :c_out, :n] = weight[:, c0:c0 + n, 0, 0]
+    return _swizzle128(w.view(torch.int16)).view(torch.int8).contiguous()
+
+
+def _unpack_gemm(packed: torch.Tensor, c_in: int, c_out: int) -> torch.Tensor:
+    """Inverse of :func:`_pack_gemm`, as OIHW."""
+    w = _swizzle128(packed.view(torch.int16)).view(torch.int8)
+    return torch.cat([w[k, :c_out, :min(width, c_in - c0)] for k, (c0, width) in enumerate(_wgmma_chunks(c_in))],
+                     dim=1)[:, :, None, None]
+
+
+def _bands_fit(c_out: int, ci_pg: int, groups: int) -> bool:
+    """Whether a grouped conv splits into ``grouped_wgmma``'s bands: as many
+    output as input channels per group, a group width dividing 32, and C a
+    multiple of 128 (one N block of four bands)."""
+    return groups > 1 and c_out == ci_pg * groups and _BAND % ci_pg == 0 and c_out % _WGMMA_CK == 0
+
+
+def _pack_banded(weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """OIHW int8 [C, C / groups, 3, 3] -> [C / 128, 9, 32, 128] int8 for
+    ``grouped_wgmma``: 128-channel block, tap (3 dy + dx), output channel n of
+    a 32-channel band, then the block's four bands' rows side by side: byte
+    32 k + c of row n is the weight from input channel c to output channel n
+    of band k (channels 128 block + 32 k + c and + n), zero where they lie in
+    other groups: each band is one dense block-diagonal 32 x 32 conv.  The
+    128-byte swizzle is applied per [32, 128] slab."""
+    c, ci_pg = weight.shape[:2]
+    dense = torch.zeros(c, _BAND, 3, 3, dtype=torch.int8, device=weight.device)  # [output, input in its band]
+    first = (torch.arange(c, device=weight.device) // ci_pg * ci_pg) % _BAND  # the group's first input in the band
+    for e in range(ci_pg):
+        dense[torch.arange(c, device=weight.device), first + e] = weight[:, e]
+    w = dense.reshape(c // _WGMMA_CK, _WGMMA_CK // _BAND, _BAND, _BAND, 9).permute(0, 4, 2, 1, 3)
+    return _swizzle128(w.reshape(c // _WGMMA_CK, 9, _BAND, _WGMMA_CK).contiguous().view(torch.int16)).view(
+        torch.int8).contiguous()
+
+
+def _band_weights(packed: torch.Tensor) -> torch.Tensor:
+    """The dense weights of each band of a :func:`_pack_banded` packing,
+    [C / 32, 32 (output), 32 (input), 3, 3] int8: band j covers channels
+    32 j .. 32 j + 31 on both sides."""
+    nb = packed.shape[0]
+    w = _swizzle128(packed.view(torch.int16)).view(torch.int8).reshape(nb, 3, 3, _BAND, _WGMMA_CK // _BAND, _BAND)
+    return w.permute(0, 4, 3, 5, 1, 2).reshape(nb * _WGMMA_CK // _BAND, _BAND, _BAND, 3, 3)
+
+
+def _unpack_banded(packed: torch.Tensor, groups: int) -> torch.Tensor:
+    """Inverse of :func:`_pack_banded`, as OIHW [C, C / groups, 3, 3]."""
+    bands = _band_weights(packed)
+    c = bands.shape[0] * _BAND
+    ci_pg = c // groups
+    dense = bands.reshape(c, _BAND, 3, 3)
+    first = (torch.arange(c, device=packed.device) // ci_pg * ci_pg) % _BAND
+    return torch.stack([dense[torch.arange(c, device=packed.device), first + e] for e in range(ci_pg)], dim=1)
+
+
+def _conv_route(c_in: int, c_out: int, kernel: Sequence[int], stride: int, padding: Sequence[int], groups: int,
                 x_addr: int) -> str:
-    """Q1's route for a call: the one place the rule lives.  The 3x3 stride-1
-    convs with pads (1, 1, 1, 1) and groups 1 take the wgmma kernel, by TMA
-    where C_in % 16 == 0 and x is 16-byte aligned (a tensor map needs 16-byte
-    strides), else through the producer's loads (the 3-channel stem); every
-    other conv takes the mma.sync kernel with the widest gather of x that C_in,
-    C_in / groups and x's alignment allow."""
-    if tuple(kernel) == (3, 3) and stride == 1 and tuple(padding) == (1, 1, 1, 1) and groups == 1:
-        return "tma_wgmma" if c_in % 16 == 0 and x_addr % 16 == 0 else "ld_wgmma"
+    """Q1's route for a call: the one place the rule lives.
+
+    - ``tma_wgmma`` / ``ld_wgmma``: the 3x3 stride-1 convs with pads
+      (1, 1, 1, 1) and groups 1, by TMA where C_in % 16 == 0 and x is 16-byte
+      aligned (a tensor map needs 16-byte strides), else through the
+      producer's loads (the 3-channel stem);
+    - ``gemm_wgmma``: the 1x1 convs with groups 1, stride 1 or 2, no padding,
+      C_in % 16 == 0 and x 16-byte aligned;
+    - ``grouped_wgmma``: the grouped 3x3 convs whose weights split into bands
+      (:func:`_bands_fit`: C_in = C_out a multiple of 128, a group width
+      dividing 32), stride 1 with pads (1, 1, 1, 1) or stride 2 with
+      (1, 1, 1, 1) or (0, 1, 0, 1) (flax ``SAME``), x 16-byte aligned;
+    - every other conv (the 7x7 stem, dense strided 3x3 convs, other pads,
+      widths or strides, unaligned x) takes the mma.sync kernel with the widest
+      gather of x that C_in, C_in / groups and x's alignment allow:
+      ``mma_v16``, ``mma_v4``, ``mma_v1``."""
+    kernel, padding, ci_pg = tuple(kernel), tuple(padding), c_in // groups
+    aligned = x_addr % 16 == 0
+    if kernel == (3, 3) and stride == 1 and padding == (1, 1, 1, 1) and groups == 1:
+        return "tma_wgmma" if c_in % 16 == 0 and aligned else "ld_wgmma"
+    if kernel == (1, 1) and groups == 1 and stride in (1, 2) and padding == (0, 0, 0, 0) and c_in % 16 == 0 and aligned:
+        return "gemm_wgmma"
+    if (kernel == (3, 3) and padding in _GROUPED_PADS.get(stride, ()) and _bands_fit(c_out, ci_pg, groups)
+            and aligned):
+        return "grouped_wgmma"
     for width in (16, 4):
         if ci_pg % width == 0 and c_in % width == 0 and x_addr % width == 0:
             return f"mma_v{width}"
@@ -191,16 +290,22 @@ def _to_int8(v: torch.Tensor, epilogue: str, rnd, shift, mult, clamp) -> torch.T
     return v.clamp(-_QMAX, _QMAX).to(torch.int8)
 
 
-def _check_epilogue(epilogue, c_out, device, **params):
-    needs = {"acc": (), "shift": ("bias", "rnd", "shift"), "mul": ("bias", "mult", "clamp")}
-    if epilogue not in needs:
+_EPILOGUE_OPERANDS = {"acc": (), "shift": ("bias", "rnd", "shift"), "mul": ("bias", "mult", "clamp")}
+
+
+def _check_epilogue(epilogue, c_out, x: torch.Tensor, **params):
+    """The epilogue's per-channel operands: contiguous int32 [C_out] tensors
+    on x's device.  Devices are compared by index (``get_device``), which
+    costs the host less than ``torch.device`` objects on every call."""
+    if epilogue not in _EPILOGUE_OPERANDS:
         raise ValueError(f"epilogue must be one of {_EPILOGUES}, got {epilogue!r}")
-    for name in needs[epilogue]:
+    device = x.get_device()
+    for name in _EPILOGUE_OPERANDS[epilogue]:
         t = params[name]
-        if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or tuple(t.shape) != (c_out,)
-                or not t.is_contiguous() or t.device != device):
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.shape != (c_out,)
+                or not t.is_contiguous() or t.get_device() != device or t.is_cuda != x.is_cuda):
             raise ValueError(f"qconv2d: epilogue {epilogue!r} needs {name} as a contiguous int32 [{c_out}] "
-                             f"tensor on {device}")
+                             f"tensor on {x.device}")
 
 
 def qconv2d_reference(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
@@ -261,34 +366,40 @@ def qconv2d(x: torch.Tensor, weight: QConvWeight, stride: int = 1, padding: Sequ
     if ho <= 0 or wo <= 0:
         raise ValueError(f"qconv2d: a {kh}x{kw} kernel does not fit a padded {h}x{w} input")
     params = dict(bias=bias, rnd=rnd, shift=shift, mult=mult, clamp=clamp)
-    _check_epilogue(epilogue, c_out, x.device, **params)
-    if weight.packed.device != x.device or (weight.wgmma is not None and weight.wgmma.device != x.device):
+    _check_epilogue(epilogue, c_out, x, **params)
+    index = x.get_device()  # -1 on the CPU
+    if any(isinstance(t, torch.Tensor) and (t.get_device() != index or t.is_cuda != x.is_cuda) for t in weight):
         raise ValueError("qconv2d: x and the weights must be on one device")
 
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"qconv2d: unsupported device {x.device}")
         return qconv2d_reference(x, weight.weight, stride, (top, bottom, left, right), groups, epilogue, relu=relu,
                                  **params)
-    if x.device.type != "cuda":
-        raise ValueError(f"qconv2d: unsupported device {x.device}")
     out_dtype = torch.int32 if epilogue == "acc" else torch.int8
-    y = torch.empty(b, c_out, ho, wo, dtype=out_dtype, device=x.device, memory_format=_CL)
+    y = x.new_empty((b, ho, wo, c_out), dtype=out_dtype).permute(0, 3, 1, 2)  # channels_last
     mode = _EPILOGUES.index(epilogue)
     p0, p1 = (rnd, shift) if epilogue == "shift" else (mult, clamp)
     ptr = lambda t: 0 if t is None or mode == 0 else t.data_ptr()  # noqa: E731
-    route = _conv_route(c_in, ci_pg, (kh, kw), stride, (top, bottom, left, right), groups, x.data_ptr())
+    route = _conv_route(c_in, c_out, (kh, kw), stride, (top, bottom, left, right), groups, x.data_ptr())
     _, n_pad, k_pad = weight.packed.shape
     packed, tile_n = weight.packed, weight.tile_n
     if route.endswith("wgmma"):
         tile_n = _wgmma_tile_n(c_out)
-        expect = (-(-c_out // tile_n), len(_wgmma_chunks(c_in)), 9, tile_n, _WGMMA_CK)
-        packed = weight.wgmma
-        if packed is None or packed.dtype != torch.int8 or tuple(packed.shape) != expect or not packed.is_contiguous():
-            raise ValueError(f"qconv2d: 3x3 groups-1 weights need their wgmma packing, contiguous int8 {expect} "
+        if route == "gemm_wgmma":
+            packed, n_pad = weight.gemm, -(-c_out // _GEMM_N_PAD) * _GEMM_N_PAD
+            expect = (len(_wgmma_chunks(c_in)), n_pad, _WGMMA_CK)
+        elif route == "grouped_wgmma":
+            packed, expect = weight.banded, (c_in // _WGMMA_CK, 9, _BAND, _WGMMA_CK)
+        else:
+            packed, expect = weight.wgmma, (-(-c_out // tile_n), len(_wgmma_chunks(c_in)), 9, tile_n, _WGMMA_CK)
+        if packed is None or packed.dtype != torch.int8 or packed.shape != expect or not packed.is_contiguous():
+            raise ValueError(f"qconv2d: the {route} route needs its packing of the weights, contiguous int8 {expect} "
                              "(pack_qconv2d_weights)")
     err = _build.library().ptt_qconv2d(
-        x.device.index, x.data_ptr(), packed.data_ptr(), ptr(bias), ptr(p0), ptr(p1), y.data_ptr(),
+        index, x.data_ptr(), packed.data_ptr(), ptr(bias), ptr(p0), ptr(p1), y.data_ptr(),
         b, h, w, c_in, ho, wo, c_out, groups, kh, kw, stride, top, left, k_pad, n_pad, tile_n, mode,
-        int(relu), _CONV_ROUTES.index(route), _build.stream_of(x.device))
+        int(relu), _CONV_ROUTES.index(route), _build.stream_of(index))
     _build.check(err, f"qconv2d ({route})")
     qconv2d.launches += 1
     qconv2d.launches_by_route[route] += 1

@@ -435,8 +435,7 @@ def test_fused_unet_on_cuda_matches_module(dev):
 
 
 def _to(weight, dev):
-    wgmma = None if weight.wgmma is None else weight.wgmma.to(dev)
-    return weight._replace(weight=weight.weight.to(dev), packed=weight.packed.to(dev), wgmma=wgmma)
+    return weight._replace(**{k: v.to(dev) for k, v in weight._asdict().items() if isinstance(v, torch.Tensor)})
 
 
 def _epilogue_operands(c_out, epilogue, gen, dev):
@@ -556,6 +555,98 @@ def test_qconv2d_wgmma_single_tap(dev, c_in):
         got = qconv2d(x, _to(pack_qconv2d_weights(weight), dev), 1, (1, 1, 1, 1), "acc")
         want = padded[:, torch.arange(c_out) % c_in, dy:dy + 9, dx:dx + 70]
         assert torch.equal(got, want), (tap, int((got != want).sum()))
+
+
+# (B, C_in, C_out, groups, kernel, stride, H, W, pads, epilogue, relu) on the 1x1 and grouped 3x3 routes: ragged
+# M and tiles, C_out off the N tile (19: register stores), batch 8, the K chunk tails, the NT = 256 tile, every
+# group width of the bands, both SAME pad forms at stride 2, each epilogue with and without ReLU
+_NEW_ROUTE_CASES = {
+    "gemm_ragged_m": (1, 64, 256, 1, 1, 1, 13, 17, (0, 0, 0, 0), "shift", True),
+    "gemm_shift": (2, 128, 128, 1, 1, 1, 20, 33, (0, 0, 0, 0), "shift", False),
+    "gemm_head_19": (2, 128, 19, 1, 1, 1, 9, 11, (0, 0, 0, 0), "mul", False),
+    "gemm_acc": (1, 256, 128, 1, 1, 1, 7, 9, (0, 0, 0, 0), "acc", False),
+    "gemm_batch_8": (8, 256, 512, 1, 1, 1, 16, 16, (0, 0, 0, 0), "mul", True),
+    "gemm_expand_2048": (1, 1024, 2048, 1, 1, 1, 8, 8, (0, 0, 0, 0), "mul", False),
+    "gemm_lateral_2048": (2, 2048, 128, 1, 1, 1, 8, 8, (0, 0, 0, 0), "mul", False),
+    "gemm_c_in_48": (2, 48, 64, 1, 1, 1, 10, 10, (0, 0, 0, 0), "shift", True),
+    "gemm_c_in_96_c_out_32": (2, 96, 32, 1, 1, 1, 10, 10, (0, 0, 0, 0), "mul", True),
+    "gemm_s2_odd": (2, 256, 512, 1, 1, 2, 15, 17, (0, 0, 0, 0), "mul", False),
+    "gemm_s2_acc": (1, 512, 1024, 1, 1, 2, 8, 8, (0, 0, 0, 0), "acc", False),
+    "gemm_s2_wide": (1, 64, 256, 1, 1, 2, 6, 300, (0, 0, 0, 0), "shift", True),
+    "gemm_s2_head_19": (3, 32, 19, 1, 1, 2, 9, 9, (0, 0, 0, 0), "shift", False),
+    "grouped_4": (2, 128, 128, 32, 3, 1, 17, 70, (1, 1, 1, 1), "mul", True),
+    "grouped_4_narrow": (2, 128, 128, 32, 3, 1, 5, 3, (1, 1, 1, 1), "mul", False),
+    "grouped_8_s2_batch_8": (8, 256, 256, 32, 3, 2, 32, 32, (0, 1, 0, 1), "mul", True),
+    "grouped_16_s2_odd": (1, 512, 512, 32, 3, 2, 15, 13, (1, 1, 1, 1), "shift", True),
+    "grouped_16_s2_wide": (1, 512, 512, 32, 3, 2, 6, 200, (0, 1, 0, 1), "mul", True),
+    "grouped_32_acc": (1, 1024, 1024, 32, 3, 1, 8, 8, (1, 1, 1, 1), "acc", False),
+    "grouped_32_s2_shift": (2, 1024, 1024, 32, 3, 2, 8, 8, (0, 1, 0, 1), "shift", False),
+    "grouped_2": (1, 128, 128, 64, 3, 1, 9, 65, (1, 1, 1, 1), "shift", True),
+    "depthwise": (2, 256, 256, 256, 3, 2, 12, 12, (0, 1, 0, 1), "mul", True),
+}
+
+
+@pytest.mark.parametrize("case", list(_NEW_ROUTE_CASES))
+def test_qconv2d_gemm_and_grouped_routes(dev, case):
+    b, c_in, c_out, groups, k, stride, h, w, pads, epilogue, relu = _NEW_ROUTE_CASES[case]
+    gen = torch.Generator().manual_seed(sum(map(ord, case)))
+    x = torch.randint(-127, 128, (b, c_in, h, w), generator=gen, dtype=torch.int8)
+    weight = torch.randint(-127, 128, (c_out, c_in // groups, k, k), generator=gen, dtype=torch.int8)
+    ops = _epilogue_operands(c_out, epilogue, gen, dev)
+    x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    route = "gemm_wgmma" if k == 1 else "grouped_wgmma"
+    before = dict(qconv2d.launches_by_route)
+    got = qconv2d(x, _to(pack_qconv2d_weights(weight, groups), dev), stride, pads, epilogue, relu=relu, **ops)
+    assert {r: qconv2d.launches_by_route[r] - n for r, n in before.items()} == {r: int(r == route) for r in before}
+    want = qconv2d_reference(x, weight.to(dev), stride, pads, groups, epilogue, relu=relu, **ops)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("stride,pads", [(1, (1, 1, 1, 1)), (2, (0, 1, 0, 1)), (2, (1, 1, 1, 1))])
+def test_qconv2d_grouped_single_tap(dev, stride, pads):
+    """One tap of identity weights at a time (output channel n reads its group's first input channel), on known
+    values: the output is the input at that tap's strided pixels, which pins the bands' A fragments, the halo's
+    origin and the tap shift of grouped_wgmma at both strides."""
+    c, width = 128, 4
+    x = ((torch.arange(c).view(1, c, 1, 1) * 7 + torch.arange(11).view(1, 1, 11, 1) * 3
+          + torch.arange(70).view(1, 1, 1, 70)) % 255 - 127).to(torch.int8).repeat(2, 1, 1, 1)
+    x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    top, bottom, left, right = pads
+    padded = torch.nn.functional.pad(x.to(torch.int32), (left, right, top, bottom))
+    ho, wo = (11 + top + bottom - 3) // stride + 1, (70 + left + right - 3) // stride + 1
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        weight = torch.zeros(c, width, 3, 3, dtype=torch.int8)
+        weight[:, 0, dy, dx] = 1
+        got = qconv2d(x, _to(pack_qconv2d_weights(weight, c // width), dev), stride, pads, "acc")
+        rows = dy + stride * torch.arange(ho, device=dev)
+        cols = dx + stride * torch.arange(wo, device=dev)
+        want = padded[:, torch.arange(c) // width * width][:, :, rows][:, :, :, cols]
+        assert torch.equal(got, want), (tap, int((got != want).sum()))
+
+
+@pytest.mark.parametrize("kind", ["gemm_s1", "gemm_s2", "grouped_s2"])
+def test_qconv2d_new_routes_over_2_31_bytes_of_input(dev, kind):
+    """Offsets past 2^31 bytes on the 1x1 (flat and strided maps) and grouped routes, with data only in the last
+    sample's corner."""
+    c, groups, k, stride, pads, n = {"gemm_s1": (256, 1, 1, 1, (0, 0, 0, 0), 33),
+                                     "gemm_s2": (256, 1, 1, 2, (0, 0, 0, 0), 33),
+                                     "grouped_s2": (1024, 32, 3, 2, (0, 1, 0, 1), 9)}[kind]
+    x = torch.zeros(n, c, 512, 512, dtype=torch.int8, device=dev).contiguous(memory_format=torch.channels_last)
+    assert x.numel() > 2**31
+    x[-1, :, -8:, -8:] = torch.randint(-127, 128, (c, 8, 8), dtype=torch.int8, device=dev)
+    gen = torch.Generator().manual_seed(12)
+    c_out = 16 if k == 1 else c
+    weight = torch.randint(-127, 128, (c_out, c // groups, k, k), generator=gen, dtype=torch.int8)
+    route = "gemm_wgmma" if k == 1 else "grouped_wgmma"
+    before = qconv2d.launches_by_route[route]
+    got = qconv2d(x, _to(pack_qconv2d_weights(weight, groups), dev), stride, pads)
+    assert qconv2d.launches_by_route[route] == before + 1
+    want = qconv2d_reference(x[-1:, :, -8:, -8:], weight.to(dev), stride, pads, groups)
+    assert torch.equal(got[-1:, :, -(8 // stride):, -(8 // stride):], want)
+    assert int(got[-1].abs().amax()) > 0 and int(got[:-1].abs().amax()) == 0
 
 
 def test_qconv2d_over_2_31_bytes_of_input(dev):
