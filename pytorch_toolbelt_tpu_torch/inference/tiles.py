@@ -25,6 +25,7 @@ import torch
 
 from ..ops.tile_merge import accumulate_tiles as scatter_merge
 from ..ops.tile_merge import detect_regular_grid, grid_merge
+from ..utils.profiling import span
 from .tta import d4_image2mask, d4_image_augment_views, d4_image_deaugment_views
 
 __all__ = [
@@ -316,37 +317,40 @@ class TileMerger:
         """batch [B, C, th, tw]; crop_coords [B, 4] of (x, y, w, h)."""
         if len(batch) != len(crop_coords):
             raise ValueError("Number of images in batch does not correspond to number of coordinates")
-        coords = np.asarray(crop_coords)
-        coords_yx = coords[:, [1, 0]].astype(np.int64)
-        batch = torch.as_tensor(batch).to(device=self.image.device)
-        if self.use_pallas is True:
-            if batch.dtype not in (torch.float32, torch.bfloat16):
-                batch = batch.to(self.image.dtype)
-            scatter_merge(self.image, self.norm_mask, batch.contiguous(), coords_yx, self.weight)
-            return
-        batch = batch.to(self.image.dtype)
-        th, tw = int(batch.shape[2]), int(batch.shape[3])
+        with span("tiles.integrate", self.image):
+            coords = np.asarray(crop_coords)
+            coords_yx = coords[:, [1, 0]].astype(np.int64)
+            batch = torch.as_tensor(batch).to(device=self.image.device)
+            if self.use_pallas is True:
+                if batch.dtype not in (torch.float32, torch.bfloat16):
+                    batch = batch.to(self.image.dtype)
+                scatter_merge(self.image, self.norm_mask, batch.contiguous(), coords_yx, self.weight)
+                return
+            batch = batch.to(self.image.dtype)
+            th, tw = int(batch.shape[2]), int(batch.shape[3])
 
-        first_call, self._touched = not self._touched, True
-        if self.use_pallas == "auto" and first_call:
-            grid = detect_regular_grid(coords_yx, th, tw)
-            if grid is not None:
-                ty, tx, sh, sw = grid
-                if ((ty - 1) * sh + th, (tx - 1) * sw + tw) == (self.image_height, self.image_width):
-                    self.image, norm = grid_merge(batch.contiguous(), self.weight, grid, normalize=False)
-                    self.norm_mask = norm.to(self.image.dtype)
-                    return
+            first_call, self._touched = not self._touched, True
+            if self.use_pallas == "auto" and first_call:
+                grid = detect_regular_grid(coords_yx, th, tw)
+                if grid is not None:
+                    ty, tx, sh, sw = grid
+                    if ((ty - 1) * sh + th, (tx - 1) * sw + tw) == (self.image_height, self.image_width):
+                        self.image, norm = grid_merge(batch.contiguous(), self.weight, grid, normalize=False)
+                        self.norm_mask = norm.to(self.image.dtype)
+                        return
 
-        w = self.weight.to(self.image.dtype)
-        for tile, (y, x) in zip(batch, coords_yx):
-            self.image[:, y : y + th, x : x + tw] += tile * w
-            self.norm_mask[:, y : y + th, x : x + tw] += w
+            w = self.weight.to(self.image.dtype)
+            for tile, (y, x) in zip(batch, coords_yx):
+                self.image[:, y : y + th, x : x + tw] += tile * w
+                self.norm_mask[:, y : y + th, x : x + tw] += w
 
     def merge(self) -> torch.Tensor:
-        return self.image / self.norm_mask
+        with span("tiles.merge", self.image):
+            return self.image / self.norm_mask
 
     def merge_(self) -> torch.Tensor:
-        self.image = self.image / self.norm_mask
+        with span("tiles.merge", self.image):
+            self.image = self.image / self.norm_mask
         return self.image
 
 
@@ -456,25 +460,27 @@ def _tiled_apply_grouped(model_fns, image, tile_size, tile_step, weight, batch_s
                          accumulator_dtype, partition):
     if image.ndim != 3:
         raise ValueError(f"image must be [C, H, W], got shape {tuple(image.shape)}")
-    h, w = int(image.shape[1]), int(image.shape[2])
-    plan_fn = _get_tiled_plan.__wrapped__ if isinstance(weight, np.ndarray) else _get_tiled_plan
-    slicer, group_coords, group_rem, weight_dev = plan_fn(
-        h, w,
-        tile_size if isinstance(tile_size, int) else tuple(tile_size),
-        tile_step if isinstance(tile_step, int) else tuple(tile_step),
-        weight, batch_size, partition, image.device,
-    )
-    sh, sw = slicer.tile_step
-    ty, tx = _grid_shape(slicer)
-    padded = torch.nn.functional.pad(
-        image, (slicer.margin_left, slicer.margin_right, slicer.margin_top, slicer.margin_bottom)
-    )
-    stack, out_dtype = _tile_rows_stack(model_fns, padded, tuple(zip(group_coords, group_rem)), slicer, 0, ty,
-                                        out_channels, accumulator_dtype)
-    return grid_merge(
-        stack, weight_dev, (ty, tx, sh, sw), out_hw=(h, w),
-        offset=(slicer.margin_top, slicer.margin_left), out_dtype=out_dtype,
-    )
+    with span("tiles.apply", device=False):
+        h, w = int(image.shape[1]), int(image.shape[2])
+        plan_fn = _get_tiled_plan.__wrapped__ if isinstance(weight, np.ndarray) else _get_tiled_plan
+        slicer, group_coords, group_rem, weight_dev = plan_fn(
+            h, w,
+            tile_size if isinstance(tile_size, int) else tuple(tile_size),
+            tile_step if isinstance(tile_step, int) else tuple(tile_step),
+            weight, batch_size, partition, image.device,
+        )
+        sh, sw = slicer.tile_step
+        ty, tx = _grid_shape(slicer)
+        padded = torch.nn.functional.pad(
+            image, (slicer.margin_left, slicer.margin_right, slicer.margin_top, slicer.margin_bottom)
+        )
+        stack, out_dtype = _tile_rows_stack(model_fns, padded, tuple(zip(group_coords, group_rem)), slicer, 0, ty,
+                                            out_channels, accumulator_dtype)
+        with span("tiles.merge", stack):
+            return grid_merge(
+                stack, weight_dev, (ty, tx, sh, sw), out_hw=(h, w),
+                offset=(slicer.margin_top, slicer.margin_left), out_dtype=out_dtype,
+            )
 
 
 def _gather_tiles(tile_view: torch.Tensor, batch_coords: torch.Tensor, tile_step, r0: int = 0):
@@ -513,7 +519,8 @@ def _tile_rows_stack(model_fns, padded, groups, slicer, r0, r1, out_channels, ac
                 out_dtype = preds.dtype
                 k = int(out_channels) if out_channels is not None else int(preds.shape[1])
                 stack = torch.empty((r1 - r0) * tx, k, th, tw, dtype=accumulator_dtype, device=padded.device)
-            stack[iy * tx + ix] = preds.to(accumulator_dtype)
+            with span("tiles.stack", stack):
+                stack[iy * tx + ix] = preds.to(accumulator_dtype)
     return stack, out_dtype
 
 

@@ -14,6 +14,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from ..nn.functional import resize_2d
+from ..utils.profiling import span
 from . import functional as F
 
 __all__ = [
@@ -249,7 +250,8 @@ _D4_DEAUG = (
 def d4_image_augment_views(image: torch.Tensor, views: Tuple[int, ...]) -> torch.Tensor:
     """[B] -> [len(views) * B]: a subset of the 8 d4 views, in the given order."""
     _check_square(image)
-    return torch.cat([_D4_AUG[v](image) for v in views], dim=0)
+    with span("tta.augment", image):
+        return torch.cat([_D4_AUG[v](image) for v in views], dim=0)
 
 
 def d4_image_deaugment_views(
@@ -257,7 +259,8 @@ def d4_image_deaugment_views(
 ) -> torch.Tensor:
     """Inverse of :func:`d4_image_augment_views` + reduction over the views."""
     chunks = split_into_chunks(image, len(views))
-    return _deaugment_averaging(torch.stack([_D4_DEAUG[v](c) for v, c in zip(views, chunks)]), reduction)
+    with span("tta.deaugment", image):
+        return _deaugment_averaging(torch.stack([_D4_DEAUG[v](c) for v, c in zip(views, chunks)]), reduction)
 
 
 def d4_image_augment(image: torch.Tensor) -> torch.Tensor:
@@ -308,12 +311,14 @@ def ms_image_augment(
     offset of 0 passes the image through."""
     rows, cols = image.shape[2], image.shape[3]
     augmented = []
-    for offset in size_offsets:
-        r_off, c_off = _offset_pair(offset)
-        if r_off == 0 and c_off == 0:
-            augmented.append(image)
-        else:
-            augmented.append(resize_2d(image, (rows + r_off, cols + c_off), mode=mode, align_corners=align_corners))
+    with span("tta.augment", image):
+        for offset in size_offsets:
+            r_off, c_off = _offset_pair(offset)
+            if r_off == 0 and c_off == 0:
+                augmented.append(image)
+            else:
+                augmented.append(resize_2d(image, (rows + r_off, cols + c_off), mode=mode,
+                                           align_corners=align_corners))
     return augmented
 
 
@@ -340,15 +345,16 @@ def ms_image_deaugment(
     if len(images) != len(size_offsets):
         raise ValueError("Got a different number of images than size offsets")
     deaugmented = []
-    for feature_map, offset in zip(images, size_offsets):
-        r_off, c_off = _offset_pair(offset)
-        if r_off == 0 and c_off == 0:
-            deaugmented.append(feature_map)
-        else:
-            rows, cols = feature_map.shape[2], feature_map.shape[3]
-            original = (rows - r_off // stride, cols - c_off // stride)
-            deaugmented.append(resize_2d(feature_map, original, mode=mode, align_corners=align_corners))
-    return _deaugment_averaging(torch.stack(deaugmented), reduction)
+    with span("tta.deaugment", images[0]):
+        for feature_map, offset in zip(images, size_offsets):
+            r_off, c_off = _offset_pair(offset)
+            if r_off == 0 and c_off == 0:
+                deaugmented.append(feature_map)
+            else:
+                rows, cols = feature_map.shape[2], feature_map.shape[3]
+                original = (rows - r_off // stride, cols - c_off // stride)
+                deaugmented.append(resize_2d(feature_map, original, mode=mode, align_corners=align_corners))
+        return _deaugment_averaging(torch.stack(deaugmented), reduction)
 
 
 # ---------------------------------------------------------------------------
@@ -419,13 +425,14 @@ class MultiscaleTTA:
         self.keys = set(deaugment_fn.keys()) if isinstance(deaugment_fn, dict) else None
 
     def __call__(self, x: torch.Tensor):
-        ms_inputs = self.augment_fn(x, size_offsets=self.size_offsets, mode=self.mode,
-                                    align_corners=self.align_corners)
-        ms_outputs = [self.model_fn(xi) for xi in ms_inputs]
-        if self.keys is None:
-            return self.deaugment_fn(ms_outputs, self.size_offsets)
-        return {key: self.deaugment_fn[key]([out[key] for out in ms_outputs], size_offsets=self.size_offsets)
-                for key in self.keys}
+        with span("tta.multiscale", device=False):
+            ms_inputs = self.augment_fn(x, size_offsets=self.size_offsets, mode=self.mode,
+                                        align_corners=self.align_corners)
+            ms_outputs = [self.model_fn(xi) for xi in ms_inputs]
+            if self.keys is None:
+                return self.deaugment_fn(ms_outputs, self.size_offsets)
+            return {key: self.deaugment_fn[key]([out[key] for out in ms_outputs], size_offsets=self.size_offsets)
+                    for key in self.keys}
 
 
 class TTAWrapper:

@@ -34,6 +34,7 @@ kernel for CUDA tensors and run their plain version
 raise.
 """
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple, Optional, Sequence
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from . import _build
 from .conv_kernels import _swizzle128
 from .conv_kernels import _tile_n as _wgmma_tile_n
@@ -347,8 +349,14 @@ def qconv2d(x: torch.Tensor, weight: QConvWeight, stride: int = 1, padding: Sequ
 
     CPU tensors take :func:`qconv2d_reference`; CUDA tensors launch Q1 on the
     route :func:`_conv_route` picks, counted in ``qconv2d.launches`` and
-    ``qconv2d.launches_by_route``.
+    ``qconv2d.launches_by_route``; under a profiler the host's whole path of
+    a CUDA call is the span ``q1.call`` (``utils.profiling``).
     """
+    with span("q1.call", device=False) if x.is_cuda else contextlib.nullcontext():
+        return _qconv2d(x, weight, stride, padding, epilogue, bias, relu, rnd, shift, mult, clamp)
+
+
+def _qconv2d(x, weight, stride, padding, epilogue, bias, relu, rnd, shift, mult, clamp) -> torch.Tensor:
     if x.ndim != 4 or x.dtype != torch.int8 or not x.is_contiguous(memory_format=_CL):
         raise ValueError(f"qconv2d: x must be a channels_last int8 [B, C, H, W] tensor, got {x.dtype} {tuple(x.shape)}")
     if not isinstance(weight, QConvWeight):

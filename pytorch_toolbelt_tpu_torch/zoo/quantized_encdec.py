@@ -56,6 +56,7 @@ from .quantized_unet import (
 )
 from ..nn.simple import _same_padding
 from ..ops.quantized import _requant
+from ..utils.profiling import span
 from ..nn.upsample import BilinearInterpolationLayer
 
 __all__ = ["quantize_encoder_decoder_inference", "attribute_quantization_error"]
@@ -516,34 +517,40 @@ def _build_int8_encdec(g, input_id, head_id, amax, input_amax, f32_nodes, requan
                     memory_format=_CL)
             return c["qc"](x_q)
         if node.op == "maxpool3s2":
-            return _q_maxpool3s2(vals_q[node.inputs[0]])
+            with span("int8.pool", vals_q[node.inputs[0]]):
+                return _q_maxpool3s2(vals_q[node.inputs[0]])
         if node.op == "avgpool2":
-            x4 = vals_q[node.inputs[0]].to(torch.int32)
-            s = x4[:, :, 0::2, 0::2] + x4[:, :, 0::2, 1::2] + x4[:, :, 1::2, 0::2] + x4[:, :, 1::2, 1::2]
-            return _sra_clip(s, 2).contiguous(memory_format=_CL)
+            with span("int8.pool", vals_q[node.inputs[0]]):
+                x4 = vals_q[node.inputs[0]].to(torch.int32)
+                s = x4[:, :, 0::2, 0::2] + x4[:, :, 0::2, 1::2] + x4[:, :, 1::2, 0::2] + x4[:, :, 1::2, 1::2]
+                return _sra_clip(s, 2).contiguous(memory_format=_CL)
         if node.op == "se":
             c = consts[node.id]
             x_q = vals_q[node.inputs[0]]
-            pooled = x_q.float().mean(dim=(2, 3)) * c["sig_in"]
-            with _full_fp32():
-                h = torch.relu(torch.matmul(pooled, c["w1"]) + c["b1"])
-                gate = torch.sigmoid(torch.matmul(h, c["w2"]) + c["b2"])
-            gate_q = torch.round(gate * (1 << _SE_SHIFT)).to(torch.int32)[:, :, None, None]
-            return _sra_clip(x_q.to(torch.int32) * gate_q, _SE_SHIFT).contiguous(memory_format=_CL)
+            with span("int8.se", x_q):
+                pooled = x_q.float().mean(dim=(2, 3)) * c["sig_in"]
+                with _full_fp32():
+                    h = torch.relu(torch.matmul(pooled, c["w1"]) + c["b1"])
+                    gate = torch.sigmoid(torch.matmul(h, c["w2"]) + c["b2"])
+                gate_q = torch.round(gate * (1 << _SE_SHIFT)).to(torch.int32)[:, :, None, None]
+                return _sra_clip(x_q.to(torch.int32) * gate_q, _SE_SHIFT).contiguous(memory_format=_CL)
         if node.op == "add":
             c = consts[node.id]
-            acc = vals_q[node.inputs[0]].to(torch.int32) * c["ma"] + vals_q[node.inputs[1]].to(torch.int32) * c["mb"]
-            if node.attrs["relu"]:
-                acc = torch.clamp_min(acc, 0)
-            return _sra_clip(acc, _ADD_SHIFT).contiguous(memory_format=_CL)
+            a, b = vals_q[node.inputs[0]], vals_q[node.inputs[1]]
+            with span("int8.add", a):
+                acc = a.to(torch.int32) * c["ma"] + b.to(torch.int32) * c["mb"]
+                if node.attrs["relu"]:
+                    acc = torch.clamp_min(acc, 0)
+                return _sra_clip(acc, _ADD_SHIFT).contiguous(memory_format=_CL)
         if node.op == "upsample2":
             x_q = vals_q[node.inputs[0]]
             return _q_upsample(x_q, 2 * x_q.shape[2], 2 * x_q.shape[3])
         if node.op == "head":
             c = consts[node.id]
-            logits = c["conv"](vals_q[node.inputs[0]]).float() * c["sw"] + c["bias"]
-            with _full_fp32():
-                return _resize_matmul(logits, resize_hw, out_align)
+            with span("int8.head", vals_q[node.inputs[0]]):
+                logits = c["conv"](vals_q[node.inputs[0]]).float() * c["sw"] + c["bias"]
+                with _full_fp32():
+                    return _resize_matmul(logits, resize_hw, out_align)
         raise AssertionError(node.op)  # pragma: no cover
 
     # ---- integer constants (+ optional sequential bias correction) ------
@@ -647,14 +654,15 @@ def _build_int8_encdec(g, input_id, head_id, amax, input_amax, f32_nodes, requan
     @torch.no_grad()
     def forward(x: torch.Tensor):
         resize_hw = tuple(x.shape[2:])
-        vals_fw = {input_id: quantize_input(x)}
-        for node in g.nodes:
-            if node.op == "input":
-                continue
-            vals_fw[node.id] = exec_node(node, vals_fw, resize_hw)
-            for src in node.inputs:  # free what no later node reads
-                if last_use[src] == node.id:
-                    del vals_fw[src]
+        with span("int8.forward", device=False):
+            vals_fw = {input_id: quantize_input(x)}
+            for node in g.nodes:
+                if node.op == "input":
+                    continue
+                vals_fw[node.id] = exec_node(node, vals_fw, resize_hw)
+                for src in node.inputs:  # free what no later node reads
+                    if last_use[src] == node.id:
+                        del vals_fw[src]
         out = vals_fw[head_id]
         if output_name is not None:
             return {output_name: out}

@@ -40,6 +40,7 @@ from ..nn.functional import _linear_weights
 from ..nn.normalization import _BATCH_ALIASES
 from ..nn.simple import _same_padding
 from ..ops.quantized import _to_int8, pack_qconv2d_weights, q_upsample, q_upsample_cat, qconv2d, upsample_taps
+from ..utils.profiling import span
 from .models import UNetSegmentationModel
 
 __all__ = ["quantize_unet_inference"]
@@ -158,11 +159,12 @@ def _qconv_apply(x_q: torch.Tensor, qc: _DeviceQConv) -> torch.Tensor:
 def _q_maxpool(x_q: torch.Tensor) -> torch.Tensor:
     """2x2 max pool of an int8 NCHW tensor: four strided slices (torch's
     ``max_pool2d`` takes no int8 on CUDA)."""
-    y = torch.maximum(
-        torch.maximum(x_q[:, :, 0::2, 0::2], x_q[:, :, 0::2, 1::2]),
-        torch.maximum(x_q[:, :, 1::2, 0::2], x_q[:, :, 1::2, 1::2]),
-    )
-    return y.contiguous(memory_format=_CL)
+    with span("int8.pool", x_q):
+        y = torch.maximum(
+            torch.maximum(x_q[:, :, 0::2, 0::2], x_q[:, :, 0::2, 1::2]),
+            torch.maximum(x_q[:, :, 1::2, 0::2], x_q[:, :, 1::2, 1::2]),
+        )
+        return y.contiguous(memory_format=_CL)
 
 
 @functools.lru_cache(maxsize=64)
@@ -334,20 +336,22 @@ def _build_int8_unet(cal: _UNetCalibration, in_channels: int, output_name: Optio
 
     @torch.no_grad()
     def forward(x: torch.Tensor):
-        x_q = torch.round(x.float() * inv_sigma_in).clamp(-_QMAX, _QMAX).to(torch.int8)
-        x_q = x_q.contiguous(memory_format=_CL)
-        skips = []
-        for layer in range(num_layers):
-            if layer > 0:
-                x_q = _q_maxpool(x_q)
-            for qc in q_enc[layer]:
-                x_q = _qconv_apply(x_q, qc)
-            skips.append(x_q)
-        for idx, i in enumerate(range(num_stages - 1, -1, -1)):
-            x_q = _q_upsample_cat(x_q, skips[i])
-            for qc in q_dec[idx]:
-                x_q = _qconv_apply(x_q, qc)
-        y = (head(x_q).float() * head_sw + head_bias).contiguous()
+        with span("int8.forward", device=False):
+            x_q = torch.round(x.float() * inv_sigma_in).clamp(-_QMAX, _QMAX).to(torch.int8)
+            x_q = x_q.contiguous(memory_format=_CL)
+            skips = []
+            for layer in range(num_layers):
+                if layer > 0:
+                    x_q = _q_maxpool(x_q)
+                for qc in q_enc[layer]:
+                    x_q = _qconv_apply(x_q, qc)
+                skips.append(x_q)
+            for idx, i in enumerate(range(num_stages - 1, -1, -1)):
+                x_q = _q_upsample_cat(x_q, skips[i])
+                for qc in q_dec[idx]:
+                    x_q = _qconv_apply(x_q, qc)
+            with span("int8.head", x_q):
+                y = (head(x_q).float() * head_sw + head_bias).contiguous()
         if output_name is not None:
             return {output_name: y}
         return y
