@@ -139,9 +139,11 @@ Phases, each printed on its own line:
      route), the output
      against the bf16 path's, then bf16 and int8 timed in turns and both
      profiled by kind; the int8 SEResNeXt50-FPN(128) with 19 classes
-     (``quantize_encoder_decoder_inference``) at 1024^2: Q1 and Q2 at each
-     distinct call bit for bit and timed, ms per forward and per config-3
-     d4 + multiscale TTA call, relative RMS against the fp32 forward;
+     (``quantize_encoder_decoder_inference``) at 1024^2: Q1, Q2 and Q3 at
+     each distinct call bit for bit and timed, Q3's launches a forward (20,
+     16 of them gated, none on the scalar route), ms per forward and per
+     config-3 d4 + multiscale TTA call, relative RMS against the fp32
+     forward;
  17. training (slice F), under an nccl group of world size 1: config 3's
      model (SEResNeXt50-FPN(128), 19 classes, train mode, fp32, channels_last)
      under ``data_parallel`` (DDP), CE-focal + 0.5 Lovasz-Softmax (K4 sorts
@@ -303,8 +305,10 @@ INT8_KINDS = (("Q1 (int8 conv)", r"qconv_kernel|qconv_wgmma_kernel|qconv_gemm_ke
 ENCDEC_KINDS = (("Q1 gemm_wgmma (1x1)", r"qconv_gemm_kernel<\d+, ?\d+, ?1,"),
                 ("Q1 grouped_wgmma", r"qconv_gemm_kernel<\d+, ?\d+, ?9,"),
                 ("Q1 tma_wgmma (3x3)", r"qconv_wgmma_kernel"), ("Q1 mma.sync (qconv_kernel)", r"qconv_kernel"),
-                ("Q2", r"q_upsample"), ("max pooling (torch.maximum)", r"maximum|max_"),
+                ("Q2", r"q_upsample"), ("Q3 (int8 add)", r"q_add"), ("max pooling (torch.maximum)", r"maximum|max_"),
                 ("SE (float)", r"gemm|gemv|reduce|mean|sigmoid"))
+# Q3's launches in one int8 SEResNeXt50-FPN forward: the 16 bottlenecks' adds, each with its SE gate, and the FPN's 4
+ENCDEC_ADDS, ENCDEC_GATED_ADDS = 20, 16
 # Phase 17: training (slice F).  Config 3's model (SEResNeXt50-FPN(128), 19 classes) trained at config 4's shape:
 # batches of 8 x 3 x 1024^2, so the logits are config 4's [8, 19, 1024, 1024]; CE-focal + 0.5 Lovasz-Softmax
 TRAIN_BATCH, TRAIN_SIZE = 8, 1024
@@ -2114,22 +2118,24 @@ def phase_ensemble_3d(dev, smi, model, fused):
 
 
 # ---------------------------------------------------------------------------
-# Phase 16: int8 inference (Q1, Q2) -- the integer UNet-32 through config 2's pipeline, the integer
+# Phase 16: int8 inference (Q1, Q2, Q3) -- the integer UNet-32 through config 2's pipeline, the integer
 # SEResNeXt50-FPN(128) at 1024^2
 # ---------------------------------------------------------------------------
 
 
 @contextlib.contextmanager
-def _checked_calls(name: str, check):
-    """While the block runs, hold the int8 forwards' calls of Q1 or Q2
+def _checked_calls(name: str, check, module=None):
+    """While the block runs, hold the int8 forwards' calls of Q1, Q2 or Q3
     (``qconv2d``, ``q_upsample`` or ``q_upsample_cat`` as
-    ``zoo/quantized_unet.py`` calls them)
+    ``zoo/quantized_unet.py`` calls them, or ``q_add`` as ``module``,
+    ``zoo/quantized_encdec.py``, calls it)
     against their plain versions as the main path makes them: at the first
-    call of each distinct shape, ``check(args, kwargs)`` runs on that call's
-    own inputs, so no input outlives its call.  Yields {shape: [check's
-    record, calls]}."""
-    from pytorch_toolbelt_tpu_torch.zoo import quantized_unet as qu
+    call of each distinct shape (a gate or none, ReLU or not), ``check(args,
+    kwargs)`` runs on that call's own inputs, so no input outlives its call.
+    Yields {shape: [check's record, calls]}."""
+    from pytorch_toolbelt_tpu_torch.zoo import quantized_unet
 
+    qu = quantized_unet if module is None else module
     real, seen = getattr(qu, name), {}
 
     def wrapped(*args, **kwargs):
@@ -2165,7 +2171,7 @@ def _plain_kernels():
         qu.qconv2d, qu.q_upsample, qu.q_upsample_cat = real
 
 
-INT8_KERNELS = ("qconv2d", "q_upsample", "q_upsample_cat")
+INT8_KERNELS = ("qconv2d", "q_upsample", "q_upsample_cat", "q_add")
 
 
 def _reset_int8_counts():
@@ -2176,6 +2182,7 @@ def _reset_int8_counts():
         fn.launches = 0
         for route in fn.launches_by_route:
             fn.launches_by_route[route] = 0
+    ops.q_add.gated = 0
 
 
 def _int8_counts() -> dict:
@@ -2185,6 +2192,7 @@ def _int8_counts() -> dict:
     for name in INT8_KERNELS + ("grid_merge",):
         fn = getattr(ops, name)
         counts[name], counts[f"{name}_by_route"] = fn.launches, dict(fn.launches_by_route)
+    counts["q_add_gated"] = ops.q_add.gated
     return counts
 
 
@@ -2397,6 +2405,37 @@ def _check_q2_cat(timed: bool):
     return check
 
 
+def _check_q3(timed: bool):
+    """A check for ``_checked_calls("q_add", ..., module=quantized_encdec)``:
+    Q3 against ``q_add_reference`` bit for bit on the call's own inputs, its
+    SE gate included where it has one, on the ``vec16`` route; if ``timed``,
+    its time beside its byte bound (a, b and the sum once) and its plain
+    version's."""
+    from pytorch_toolbelt_tpu_torch.ops import q_add, q_add_reference
+
+    def check(args, kwargs):
+        a, _, _, _, relu, gate = (*args, kwargs.get("gate"))[:6]
+        got, route = _route_of(q_add, lambda: q_add(*args, **kwargs))
+        want = q_add_reference(*args, **kwargs)
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        shape = f"{'gated ' if gate is not None else ''}{'ReLU ' if relu else ''}{list(a.shape)}"
+        if got.shape != want.shape or err != 0:
+            raise AssertionError(f"q_add {shape} disagrees with q_add_reference (max |err| {err})")
+        if route != "vec16":
+            raise AssertionError(f"q_add {shape} took the route {route}, not vec16")
+        del want
+        record = {"max_abs_err": err, "route": route, "shape": shape, "gated": gate is not None}
+        if not timed:
+            return record
+        record["bytes"] = 3 * a.numel()
+        record["bound"] = bound_ms(record["bytes"])[0]
+        record["ms"] = cuda_ms(lambda: q_add(*args, **kwargs), reps=5)
+        record["plain_ms"] = cuda_ms(lambda: q_add_reference(*args, **kwargs), reps=1, windows=1, warmup=0)
+        return record
+
+    return check
+
+
 def _q1_totals(seen: dict, what: str) -> dict:
     """Q1's checked shapes of one run: a log line each, and the run's sums
     (each shape's time times its calls)."""
@@ -2535,6 +2574,46 @@ def _rel_rms(got, ref) -> float:
     return float((got - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
 
 
+def _q3_totals(seen: dict, what: str) -> dict:
+    """Q3's checked shapes of one run: a log line each, and the run's sums
+    (each shape's time times its calls)."""
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0, "shapes": len(seen),
+             "calls": sum(n for _, n in seen.values()), "gated": sum(n for r, n in seen.values() if r["gated"])}
+    for r, n in seen.values():
+        total["max_abs_err"] = max(total["max_abs_err"], r["max_abs_err"])
+        for key, value in (("ms", r["ms"]), ("plain_ms", r["plain_ms"]), ("bound_ms", r["bound"])):
+            total[key] += n * value
+        log(f"[16] q_add {what} {r['shape']} (x{n}) route {r['route']}: bit-equal to q_add_reference; kernel "
+            f"{r['ms']} = {r['bytes'] / r['ms'] / 1e6:.0f} GB/s, bound {r['bound']:.4f} ms (bytes) = "
+            f"{r['bound'] / r['ms']:.1%} of the kernel; plain version {r['plain_ms']:.3f} ms")
+    return total
+
+
+def _check_q3_counts(counts: dict, seen: dict, forwards: int, what: str) -> None:
+    """A counted run's Q3 launches: the checked run's calls, ``ENCDEC_ADDS``
+    a forward, ``ENCDEC_GATED_ADDS`` of them gated, none on the scalar
+    route."""
+    got = (counts["q_add"], counts["q_add_gated"], counts["q_add_by_route"]["scalar"])
+    want = (ENCDEC_ADDS * forwards, ENCDEC_GATED_ADDS * forwards, 0)
+    checked = sum(n for _, n in seen.values())
+    if got != want or checked != counts["q_add"]:
+        raise AssertionError(f"{what}: Q3 launched {counts['q_add_by_route']} with {counts['q_add_gated']} gated "
+                             f"(want {want[0]} on vec16, {want[1]} gated), the checked run {checked}")
+    log(f"[16] q_add {what}: launches by route {counts['q_add_by_route']}, {counts['q_add_gated']} gated, as the "
+        f"checked run's calls took them")
+
+
+def _q3_kernel(launches: dict, q3: dict, q3_tta: dict) -> dict:
+    """Q3's entry of the ``kernels`` line: the forward's adds at batch 1 and
+    the TTA call's at batch 8, summed over each run's calls."""
+    return {"name": "q_add", "route": "cuda", "source": "pytorch_toolbelt_tpu_torch/csrc/q_add.cu",
+            "replaces": "pytorch_toolbelt_tpu/zoo/quantized_encdec.py:622", "launches": launches["q_add"],
+            "gated": launches["q_add_gated"], "max_abs_err": max(q3["max_abs_err"], q3_tta["max_abs_err"]),
+            "ms": q3["ms"], "plain_ms": q3["plain_ms"], "bound_ms": q3["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "launches_by_route": launches["q_add_by_route"], "tta_ms": q3_tta["ms"],
+            "tta_plain_ms": q3_tta["plain_ms"], "tta_bound_ms": q3_tta["bound_ms"]}
+
+
 def _add_counts(total: dict, counts: dict) -> dict:
     """Launch counts by kernel and by route, summed."""
     for key, value in counts.items():
@@ -2553,15 +2632,18 @@ def phase_int8_encdec(dev, smi, strict: bool = True):
     one call of config 3's d4 + multiscale TTA (the model on its batch-8 d4
     views at 1024^2 and 768^2), in each of which Q1 is held bit for bit
     against its plain version at the first call of every distinct shape and
-    timed there (Q2 too in the forward), Q1's times summed by class of conv;
-    then a counted forward and a counted TTA call, whose launches by route
-    must be the checked calls' (with ``strict``, each call on its class's
-    route: only the 7x7 stem on ``mma_v1``); the forward and the TTA timed;
+    timed there (Q2 too in the forward, and Q3, gated or not, in both), Q1's
+    times summed by class of conv; then a counted forward and a counted TTA
+    call, whose launches by route must be the checked calls' (with
+    ``strict``, each call on its class's route: only the 7x7 stem on
+    ``mma_v1``; Q3 ``ENCDEC_ADDS`` times a forward on ``vec16``,
+    ``ENCDEC_GATED_ADDS`` of them gated); the forward and the TTA timed;
     shapes, finite values and the distance to the fp32 forward.  Returns the
-    counted runs' launches, Q1's sums of the forward and of the TTA call, and
-    Q2's of the forward."""
+    counted runs' launches, Q1's sums of the forward and of the TTA call,
+    Q2's of the forward and Q3's of the forward and of the TTA call."""
     from pytorch_toolbelt_tpu_torch.inference import MultiscaleTTA, d4_image2mask
     from pytorch_toolbelt_tpu_torch.zoo import quantize_encoder_decoder_inference
+    from pytorch_toolbelt_tpu_torch.zoo import quantized_encdec
 
     model3 = int8_config3_model(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 16)
@@ -2573,18 +2655,21 @@ def phase_int8_encdec(dev, smi, strict: bool = True):
     cal_s = time.perf_counter() - t0
     del cal_images
     with _checked_calls("qconv2d", _check_q1("SEResNeXt50-FPN", True, strict=strict)) as convs, \
-            _checked_calls("q_upsample", _check_q2(True)) as ups:
+            _checked_calls("q_upsample", _check_q2(True)) as ups, \
+            _checked_calls("q_add", _check_q3(True), module=quantized_encdec) as adds:
         q3(x)
     torch.cuda.synchronize()
     q1_3 = _q1_totals(convs, "SEResNeXt50-FPN")
     _q1_classes(convs, "one forward at batch 1", smi)
     q2_3 = _q2_totals(ups)
+    q3_3 = _q3_totals(adds, "SEResNeXt50-FPN")
     _reset_int8_counts()
     got = q3(x)
     torch.cuda.synchronize()
     counts3 = _int8_counts()
     _check_q1_routes(convs, counts3["qconv2d_by_route"], "SEResNeXt50-FPN forward", strict)
-    del convs, ups
+    _check_q3_counts(counts3, adds, 1, "SEResNeXt50-FPN forward")
+    del convs, ups, adds
     with torch.no_grad():
         ref = model3(x)
     rms = _rel_rms(got, ref)
@@ -2594,17 +2679,20 @@ def phase_int8_encdec(dev, smi, strict: bool = True):
     _log_profile_by_kind("[16] profiled int8 SEResNeXt50-FPN forward", lambda: q3(x), ENCDEC_KINDS, smi, top=8)
 
     tta = MultiscaleTTA(lambda xi: d4_image2mask(q3, xi), size_offsets=MS_OFFSETS)
-    with _checked_calls("qconv2d", _check_q1("SEResNeXt50-FPN TTA", True, strict=strict)) as tta_convs:
+    with _checked_calls("qconv2d", _check_q1("SEResNeXt50-FPN TTA", True, strict=strict)) as tta_convs, \
+            _checked_calls("q_add", _check_q3(True), module=quantized_encdec) as tta_adds:
         tta(x)
     torch.cuda.synchronize()
     q1_tta = _q1_totals(tta_convs, "SEResNeXt50-FPN TTA")
     _q1_classes(tta_convs, "one call of config 3's TTA (batch-8 views at 1024^2 and 768^2)", smi)
+    q3_tta = _q3_totals(tta_adds, "SEResNeXt50-FPN TTA")
     _reset_int8_counts()
     out = tta(x)
     torch.cuda.synchronize()
     counts_tta = _int8_counts()
     _check_q1_routes(tta_convs, counts_tta["qconv2d_by_route"], "config 3's TTA call", strict)
-    del tta_convs
+    _check_q3_counts(counts_tta, tta_adds, len(MS_OFFSETS), "config 3's TTA call")
+    del tta_convs, tta_adds
     t0 = time.perf_counter()
     for _ in range(3):
         out = tta(x)
@@ -2615,12 +2703,18 @@ def phase_int8_encdec(dev, smi, strict: bool = True):
     log(f"[16] int8 SEResNeXt50-FPN(128), {CLASSES} classes (quantize_encoder_decoder_inference, requant mul, bias "
         f"correction, calibrated in {cal_s:.1f} s on {INT8_CAL_IMAGES} images of {INT8_SIZE}^2): its {q1_3['calls']} "
         f"convs ({q1_3['shapes']} distinct shapes) bit-equal to qconv2d_reference, {q1_3['ms']:.2f} ms of Q1 per "
-        f"forward against a bound of {q1_3['bytes'] + q1_3['operations']:.2f} ms; launches per forward: Q1 "
-        f"{counts3['qconv2d_by_route']}, Q2 {counts3['q_upsample_by_route']} ({smi})")
+        f"forward against a bound of {q1_3['bytes'] + q1_3['operations']:.2f} ms; its {q3_3['calls']} adds "
+        f"({q3_3['gated']} gated) bit-equal to q_add_reference, {q3_3['ms']:.3f} ms of Q3 per forward against a bound "
+        f"of {q3_3['bound_ms']:.3f} ms (plain version {q3_3['plain_ms']:.2f} ms); launches per forward: Q1 "
+        f"{counts3['qconv2d_by_route']}, Q2 {counts3['q_upsample_by_route']}, Q3 {counts3['q_add_by_route']} "
+        f"({counts3['q_add_gated']} gated) ({smi})")
     log(f"[16] int8 SEResNeXt50-FPN(128), config 3's TTA: its {q1_tta['calls']} convs ({q1_tta['shapes']} distinct "
         f"shapes) bit-equal to qconv2d_reference, {q1_tta['ms']:.2f} ms of Q1 per call against a bound of "
-        f"{q1_tta['bytes'] + q1_tta['operations']:.2f} ms; launches per call: Q1 {counts_tta['qconv2d_by_route']}, "
-        f"Q2 {counts_tta['q_upsample_by_route']} ({smi})")
+        f"{q1_tta['bytes'] + q1_tta['operations']:.2f} ms; its {q3_tta['calls']} adds ({q3_tta['gated']} gated) "
+        f"bit-equal to q_add_reference, {q3_tta['ms']:.3f} ms of Q3 per call against a bound of "
+        f"{q3_tta['bound_ms']:.3f} ms (plain version {q3_tta['plain_ms']:.2f} ms); launches per call: Q1 "
+        f"{counts_tta['qconv2d_by_route']}, Q2 {counts_tta['q_upsample_by_route']}, Q3 "
+        f"{counts_tta['q_add_by_route']} ({counts_tta['q_add_gated']} gated) ({smi})")
     log(f"[16] int8 SEResNeXt50-FPN(128): {ms} per [1, 3, {INT8_SIZE}, {INT8_SIZE}] forward (the fp32 module "
         f"{f_ms}); config 3's d4 + multiscale {MS_OFFSETS} TTA {tta_ms:.1f} ms per call; rel RMS against the fp32 "
         f"forward {rms:.4f}; {'ok' if ok else 'FAIL'} ({smi})")
@@ -2631,7 +2725,7 @@ def phase_int8_encdec(dev, smi, strict: bool = True):
             raise AssertionError(f"the SEResNeXt50-FPN's upsamples took {counts['q_upsample_by_route']}")
     del model3, q3
     torch.cuda.empty_cache()
-    return _add_counts(counts3, counts_tta), q1_3, q1_tta, q2_3
+    return _add_counts(counts3, counts_tta), q1_3, q1_tta, q2_3, q3_3, q3_tta
 
 
 def phase_int8(dev, smi, model, fused, t_start):
@@ -2761,7 +2855,7 @@ def phase_int8(dev, smi, model, fused, t_start):
     torch.cuda.empty_cache()
 
     # [16.5] the int8 SEResNeXt50-FPN(128) at batch 1 and under config 3's TTA
-    counts3, q1_3, q1_tta, q2_3 = phase_int8_encdec(dev, smi)
+    counts3, q1_3, q1_tta, q2_3, q3_3, q3_tta = phase_int8_encdec(dev, smi)
     _add_counts(launches, counts3)
     if min(launches[key] for key in INT8_KERNELS) == 0:
         raise AssertionError(f"a kernel of the int8 paths was never launched: {launches}")
@@ -2800,6 +2894,7 @@ def phase_int8(dev, smi, model, fused, t_start):
          "max_abs_err": q2["max_abs_err"], "ms": q2["ms"], "plain_ms": q2["plain_ms"], "bound_ms": q2["bound"],
          "bound_by": "bytes", "library_ms": None, "launches_by_route": launches["q_upsample_cat_by_route"],
          "yardstick_ms": q2["alone_ms"] + q2["cat_ms"], "cat_ms": q2["cat_ms"]},
+        _q3_kernel(launches, q3_3, q3_tta),
     ]
     return kernels, launches.get("grid_merge", 0), launches.get("grid_merge_by_route", {})
 

@@ -8,7 +8,10 @@ warmed up as its harness does, a few requests served under
 * the host's time in each runtime call that waits for the card
   (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
   ``cudaEventSynchronize``, a blocking ``cudaMemcpy``) by the same keys;
-* the port's span totals (``span_totals()``) per request.
+* the port's span totals (``span_totals()``) per request;
+* the kernels inside each span: each kernel under the innermost span open
+  on the host where the runtime call that launched it started (the spans'
+  fast ranges leave no range on the card's timeline).
 
 All in ms per request, on one CUDA card; the full lists go to
 ``chiprun_out/span_gaps_<cell>.json``.
@@ -57,6 +60,24 @@ def _where(host, points):
                 stack.pop()
         out.append(" / ".join(stacks[k][-1][2] if stacks[k] else "-" for k in ("span", "op", "runtime")))
     return out
+
+
+def _by_host_launch(prof, host, n):
+    """{innermost span open on the host at the launch: {kernel: ms a request}},
+    a kernel matched to its runtime call by the profiler's correlation id."""
+    from torch.autograd import DeviceType
+
+    from portbench import trace
+
+    launches = {e.id: e.time_range.start for e in prof.events()
+                if e.device_type == DeviceType.CPU and "Launch" in e.name}
+    kernels = sorted((launches[e.id], e.time_range.end - e.time_range.start, e.name) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                     and e.id in launches)
+    inside = defaultdict(lambda: defaultdict(float))
+    for (_, us, name), key in zip(kernels, _where(host, [t for t, _, _ in kernels])):
+        inside[key.split(" / ")[0]][trace.short(name)] += us / 1e3 / n
+    return inside
 
 
 def main() -> int:
@@ -124,10 +145,12 @@ def main() -> int:
                                                                                         "device_s")}}
               for name, t in profiling.span_totals().items()}  # a request's calls and ms
     busy_ms = trace.busy_s(device_events) * 1e3 / n
+    kernels = {span: sorted(ks.items(), key=lambda kv: -kv[1]) for span, ks in _by_host_launch(prof, host, n).items()}
     result = {"workload": args.workload, "requests": args.requests, "device": torch.cuda.get_device_name(device),
               "window_ms_per_request": (hi - lo) / 1e3 / n, "busy_ms_per_request": busy_ms,
               "idle_ms": sorted(idle.items(), key=lambda kv: -kv[1]),
-              "wait_ms": sorted(waited.items(), key=lambda kv: -kv[1]), "span_ms_per_request": totals}
+              "wait_ms": sorted(waited.items(), key=lambda kv: -kv[1]), "span_ms_per_request": totals,
+              "kernels_ms": kernels}
     out = ROOT / "chiprun_out" / f"span_gaps_{args.workload}.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
@@ -143,6 +166,10 @@ def main() -> int:
     for name, t in sorted(totals.items()):
         print(f"  {name:16s} {t['calls']:8.2f}  host {t['host_ms']:9.4f}  self {t['self_host_ms']:9.4f}"
               f"  device {t['device_ms']:9.4f}")
+    print("kernels inside each span, by the span open at the launch (ms a request):")
+    for span, ks in sorted(kernels.items()):
+        print(f"  {span:16s} " + "; ".join(f"{k} {ms:.4f}" for k, ms in ks[:TOP]) +
+              (f"; {len(ks) - TOP} more" if len(ks) > TOP else ""))
     return 0
 
 

@@ -64,6 +64,8 @@ _SIGNATURES = {
     # device, x, skip (or null), y, row taps, column taps, B, H, W, C, Cs, OH, OW,
     # route (ops/quantized.py _UPSAMPLE_ROUTES), int[4] tile of the banded route, stream
     "ptt_q_upsample": (_I, [_I] + [_P] * 5 + [_I] * 8 + [_P, _P]),
+    # device, a, b, ma, mb, gate (or null), y, B, H * W, C, relu, route (ops/quantized.py _ADD_ROUTES), stream
+    "ptt_q_add": (_I, [_I] + [_P] * 6 + [_I, _LL, _I, _I, _I, _P]),
     # device, int[6] out: pairs per chunk, threads per block, shared bytes per block, blocks per SM
     # of the chunk sort and of the merge, most runs merged at once
     "ptt_merge_sort_info": (_I, [_I, _P]),

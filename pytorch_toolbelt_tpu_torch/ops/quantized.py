@@ -1,5 +1,6 @@
-"""int8 convolution (kernel Q1) and requantized int8 bilinear upsample
-(kernel Q2) for the integer inference paths of ``zoo/quantized_unet.py`` and
+"""int8 convolution (kernel Q1), requantized int8 bilinear upsample (kernel
+Q2) and the requantized int8 add with an optional SE excitation (kernel Q3)
+for the integer inference paths of ``zoo/quantized_unet.py`` and
 ``zoo/quantized_encdec.py``.
 
 The JAX package runs both as XLA ops: ``lax.conv_general_dilated(...,
@@ -20,18 +21,23 @@ output rows and columns, its input in shared memory, each row-pass value
 computed once) and the per-pixel kernel for the other channel counts
 (``v4``, ``v1``), which :func:`q_upsample` runs alone and
 :func:`q_upsample_cat` runs writing the decoder input, upsample and skip, in
-one launch.  :func:`_conv_route` and :func:`_upsample_route` pick the routes.
+one launch.  Q3 is ``csrc/q_add.cu``: the encoder-decoder's residual and FPN
+adds, each addend read once and the int8 sum written once, with the SE
+excitation of the first addend applied in registers (route ``vec16``: 16
+channels a thread, 16-byte accesses; ``scalar`` for the other channel counts
+and alignments).  :func:`_conv_route`, :func:`_upsample_route` and
+:func:`_add_route` pick the routes.
 
 Activations are NCHW tensors in the ``torch.channels_last`` memory format
 (their storage is NHWC), int8.  All integer arithmetic is int32 with two's
 complement wraparound, as XLA's; ``>>`` is arithmetic and a shift of 32 or
 more leaves the sign, as in XLA and torch.
 
-:func:`qconv2d`, :func:`q_upsample` and :func:`q_upsample_cat` launch their
-kernel for CUDA tensors and run their plain version
+:func:`qconv2d`, :func:`q_upsample`, :func:`q_upsample_cat` and :func:`q_add`
+launch their kernel for CUDA tensors and run their plain version
 (:func:`qconv2d_reference`, :func:`q_upsample_reference`,
-:func:`q_upsample_cat_reference`) for CPU tensors; on any other device they
-raise.
+:func:`q_upsample_cat_reference`, :func:`q_add_reference`) for CPU tensors;
+on any other device they raise.
 """
 
 import contextlib
@@ -51,6 +57,8 @@ from .conv_kernels import _tile_n as _wgmma_tile_n
 __all__ = [
     "QConvWeight",
     "pack_qconv2d_weights",
+    "q_add",
+    "q_add_reference",
     "q_upsample",
     "q_upsample_cat",
     "q_upsample_cat_reference",
@@ -75,6 +83,10 @@ _UPSAMPLE_ROUTES = ("banded", "v4", "v1")
 _BAND_ROWS = 8  # output rows per block of the banded route
 _BAND_ROW_BYTES, _BAND_MIN_COLS, _BAND_MAX_COLS = 4096, 8, 64  # output channels x columns per band row
 _BAND_SMEM = 232448  # shared memory a block may hold on the H100
+# Q3's routes; the index is the code ptt_q_add takes
+_ADD_ROUTES = ("vec16", "scalar")
+_ADD_SHIFT = 12  # fixed-point bits of Q3's per-channel add multipliers
+_GATE_SHIFT = 14  # fixed-point bits of Q3's SE gates
 _CL = torch.channels_last
 
 
@@ -625,3 +637,83 @@ def q_upsample_cat(x: torch.Tensor, skip: torch.Tensor, mh, mw, taps=None) -> to
 
 q_upsample_cat.launches = 0
 q_upsample_cat.launches_by_route = dict.fromkeys(_UPSAMPLE_ROUTES, 0)
+
+
+def _add_route(c: int, addrs: Sequence[int]) -> str:
+    """Q3's route for a call: the one place the rule lives.  ``vec16`` (16
+    channels a thread, 16-byte loads and stores) where C % 16 == 0 and every
+    tensor it touches starts on a 16-byte boundary; ``scalar`` (one thread an
+    element) otherwise."""
+    return "vec16" if c % 16 == 0 and all(a % 16 == 0 for a in addrs) else "scalar"
+
+
+def q_add_reference(a: torch.Tensor, b: torch.Tensor, ma: torch.Tensor, mb: torch.Tensor, relu: bool,
+                    gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`q_add`, in int32 torch ops."""
+    s = a.to(torch.int32)
+    if gate is not None:
+        s = ((s * gate[:, :, None, None] + (1 << (_GATE_SHIFT - 1))) >> _GATE_SHIFT).clamp(-_QMAX, _QMAX)
+    acc = s * _per_channel(ma) + b.to(torch.int32) * _per_channel(mb)
+    if relu:
+        acc = torch.clamp_min(acc, 0)
+    out = ((acc + (1 << (_ADD_SHIFT - 1))) >> _ADD_SHIFT).clamp(-_QMAX, _QMAX).to(torch.int8)
+    return out.contiguous(memory_format=_CL)
+
+
+def q_add(a: torch.Tensor, b: torch.Tensor, ma: torch.Tensor, mb: torch.Tensor, relu: bool,
+          gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Requantized int8 add of two int8 maps, the first optionally SE-excited.
+
+    Args:
+        a, b: [B, C, H, W] int8, ``torch.channels_last`` contiguous, of one
+            shape and on one device.
+        ma, mb: contiguous int32 [C]: each addend's fixed-point multiplier
+            onto the sum's scale (``2^12`` is 1).
+        relu: floor the sum at 0.
+        gate: None, or a contiguous int32 [B, C]: the SE gate of ``a`` as
+            ``round(gate * 2^14)``.
+    Returns:
+        [B, C, H, W] int8, ``torch.channels_last``:
+        ``s = clip((a * gate + 2^13) >> 14, +-127)`` (``s = a`` without a
+        gate), ``acc = s * ma + b * mb``, ``max(acc, 0)`` with ``relu``, then
+        ``clip((acc + 2^11) >> 12, +-127)``, per channel, in int32.  The kernel
+        equals this bit for bit wherever ``|s * ma + b * mb| + 2^11 < 2^31``,
+        which multipliers within [-2^22, 2^22] guarantee.
+
+    CPU tensors take :func:`q_add_reference`; CUDA tensors launch Q3 on the
+    route :func:`_add_route` picks, counted in ``q_add.launches``,
+    ``q_add.launches_by_route`` and ``q_add.gated`` (launches with a gate).
+    """
+    index, cuda = a.get_device(), a.is_cuda  # devices compared by index: cheaper on the host than torch.device
+    if (a.ndim != 4 or a.dtype != torch.int8 or not a.is_contiguous(memory_format=_CL) or b.dtype != torch.int8
+            or b.shape != a.shape or not b.is_contiguous(memory_format=_CL) or b.get_device() != index
+            or b.is_cuda != cuda):
+        raise ValueError(f"q_add: a and b must be channels_last int8 [B, C, H, W] tensors of one shape on one "
+                         f"device, got {a.dtype} {tuple(a.shape)} on {a.device} and {b.dtype} {tuple(b.shape)} on "
+                         f"{b.device}")
+    n, c, h, w = a.shape
+    for name, t, shape in (("ma", ma, (c,)), ("mb", mb, (c,)), ("gate", gate, (n, c))):
+        if t is None and name == "gate":
+            continue
+        if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.shape != shape or not t.is_contiguous()
+                or t.get_device() != index or t.is_cuda != cuda):
+            raise ValueError(f"q_add: {name} must be a contiguous int32 {list(shape)} tensor on {a.device}")
+    if not cuda:
+        if a.device.type != "cpu":
+            raise ValueError(f"q_add: unsupported device {a.device}")
+        return q_add_reference(a, b, ma, mb, relu, gate)
+    y = torch.empty_like(a, memory_format=_CL)
+    ptrs = [t.data_ptr() for t in (a, b, ma, mb, y)] + ([] if gate is None else [gate.data_ptr()])
+    route = _add_route(c, ptrs)
+    err = _build.library().ptt_q_add(index, *ptrs[:4], 0 if gate is None else ptrs[5], ptrs[4], n, h * w, c,
+                                     int(relu), _ADD_ROUTES.index(route), _build.stream_of(index))
+    _build.check(err, f"q_add ({route})")
+    q_add.launches += 1
+    q_add.launches_by_route[route] += 1
+    q_add.gated += gate is not None
+    return y
+
+
+q_add.launches = 0
+q_add.launches_by_route = dict.fromkeys(_ADD_ROUTES, 0)
+q_add.gated = 0

@@ -14,18 +14,22 @@ form.  Structures the UNet does not have:
 
 * **Residual adds** (shortcuts, FPN top-down sums): each addend is
   requantized to the add's calibrated scale with a per-channel int32
-  fixed-point multiplier ``round(sigma_in / sigma_out * 2^12)``.
+  fixed-point multiplier ``round(sigma_in / sigma_out * 2^12)``, in one
+  launch of Q3 (:func:`~pytorch_toolbelt_tpu_torch.ops.q_add`).
 * **SE gates**: the squeeze (mean -> fc -> relu -> fc -> sigmoid) runs in
   float32 on the pooled [B, C, 1, 1] vector; the excitation is an integer
-  multiply by ``round(gate * 2^14)`` and a >> 14 requant.
+  multiply by ``round(gate * 2^14)`` and a >> 14 requant.  The graph reads
+  every SE node only from its block's add, as the first addend, so the add's
+  Q3 launch applies the excitation in registers and the excited map is never
+  written.
 * **Bias-only convs** (FPN laterals and prediction convs, the head):
   quantized like conv+BN with signed calibrated ranges.
 
 Only the image input (one quantize) and the head logits (one dequant at the
 head's resolution, before the float32 output resize) touch float.  The FPN's
 x2 upsample runs on Q2 (:func:`~pytorch_toolbelt_tpu_torch.ops.q_upsample`);
-pools, SE, adds and the head's dequant and resize are int32 / float32 torch
-ops, as they are XLA ops in the JAX package.
+pools, the SE squeezes and the head's dequant and resize are int32 / float32
+torch ops, as they are XLA ops in the JAX package.
 
 The architecture is built once as a list of nodes (:class:`_Graph`) from the
 port's modules, with HWIO float64 weights, and interpreted three times: the
@@ -55,14 +59,12 @@ from .quantized_unet import (
     _resize_matmul,
 )
 from ..nn.simple import _same_padding
-from ..ops.quantized import _requant
+from ..ops.quantized import _ADD_SHIFT, _GATE_SHIFT, _requant, q_add
 from ..utils.profiling import span
 from ..nn.upsample import BilinearInterpolationLayer
 
 __all__ = ["quantize_encoder_decoder_inference", "attribute_quantization_error"]
 
-_ADD_SHIFT = 12  # fixed-point bits for residual-add requant multipliers
-_SE_SHIFT = 14  # fixed-point bits for the SE excitation multiply
 _CL = torch.channels_last
 
 
@@ -532,16 +534,16 @@ def _build_int8_encdec(g, input_id, head_id, amax, input_amax, f32_nodes, requan
                 with _full_fp32():
                     h = torch.relu(torch.matmul(pooled, c["w1"]) + c["b1"])
                     gate = torch.sigmoid(torch.matmul(h, c["w2"]) + c["b2"])
-                gate_q = torch.round(gate * (1 << _SE_SHIFT)).to(torch.int32)[:, :, None, None]
-                return _sra_clip(x_q.to(torch.int32) * gate_q, _SE_SHIFT).contiguous(memory_format=_CL)
+                # the excitation is left to the add that reads it: the SE's value
+                # is its input with the [B, C] gate, round(gate * 2^14), beside it
+                return x_q, torch.round(gate * (1 << _GATE_SHIFT)).to(torch.int32)
         if node.op == "add":
             c = consts[node.id]
-            a, b = vals_q[node.inputs[0]], vals_q[node.inputs[1]]
+            a, gate = vals_q[node.inputs[0]], None
+            if isinstance(a, tuple):  # an SE's output
+                a, gate = a
             with span("int8.add", a):
-                acc = a.to(torch.int32) * c["ma"] + b.to(torch.int32) * c["mb"]
-                if node.attrs["relu"]:
-                    acc = torch.clamp_min(acc, 0)
-                return _sra_clip(acc, _ADD_SHIFT).contiguous(memory_format=_CL)
+                return q_add(a, vals_q[node.inputs[1]], c["ma"], c["mb"], node.attrs["relu"], gate)
         if node.op == "upsample2":
             x_q = vals_q[node.inputs[0]]
             return _q_upsample(x_q, 2 * x_q.shape[2], 2 * x_q.shape[3])
@@ -621,8 +623,8 @@ def _build_int8_encdec(g, input_id, head_id, amax, input_amax, f32_nodes, requan
                 ma = np.clip(np.round(sig_a / sig_out * (1 << _ADD_SHIFT)), 0, 1 << 20)
                 mb = np.clip(np.round(sig_b / sig_out * (1 << _ADD_SHIFT)), 0, 1 << 20)
                 consts[node.id] = {
-                    "ma": torch.as_tensor(ma.astype(np.int32), device=device).view(1, -1, 1, 1),
-                    "mb": torch.as_tensor(mb.astype(np.int32), device=device).view(1, -1, 1, 1),
+                    "ma": torch.as_tensor(ma.astype(np.int32), device=device),
+                    "mb": torch.as_tensor(mb.astype(np.int32), device=device),
                 }
                 sigma[node.id] = sig_out
             elif node.op == "upsample2":

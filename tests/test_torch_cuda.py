@@ -19,7 +19,8 @@ from pytorch_toolbelt_tpu_torch.ops import conv3x3, conv3x3_reference, grid_merg
 from pytorch_toolbelt_tpu_torch.ops import pack_conv3x3_weights
 from pytorch_toolbelt_tpu_torch.ops.conv_kernels import _pack_wmma, _route, _unpack
 from pytorch_toolbelt_tpu_torch.ops import pack_qconv2d_weights, q_upsample, q_upsample_cat, q_upsample_cat_reference
-from pytorch_toolbelt_tpu_torch.ops import q_upsample_reference, qconv2d, qconv2d_reference, upsample_taps
+from pytorch_toolbelt_tpu_torch.ops import q_add, q_add_reference, q_upsample_reference, qconv2d, qconv2d_reference
+from pytorch_toolbelt_tpu_torch.ops import upsample_taps
 from pytorch_toolbelt_tpu_torch.zoo import UNetSegmentationModel, fuse_unet_inference, quantize_unet_inference
 from pytorch_toolbelt_tpu_torch.zoo.quantized_unet import _build_int8_unet, _calibrate_unet, _q_upsample_matrices
 
@@ -774,6 +775,88 @@ def test_int8_unet_on_cuda_equals_its_plain_forward(dev):
     assert float(((q - f) ** 2).mean().sqrt() / (f**2).mean().sqrt()) < 0.06
 
 
+# Q3 (q_add) at the int8 SEResNeXt50-FPN's add shapes at batch 8: the residual
+# adds of its four stages on 1024^2 views, and the FPN's widest top-down add
+_Q_ADD_SHAPES = {"stage1": (8, 256, 256, 256), "stage2": (8, 512, 128, 128), "stage3": (8, 1024, 64, 64),
+                 "stage4": (8, 2048, 32, 32), "fpn": (8, 128, 512, 512)}
+
+
+def _q_add_operands(shape, seed, dev):
+    """Seeded addends over the whole int8 range, multipliers in [0, 2^20],
+    gates in [0, 2^14], with both ends of each present."""
+    n, c, h, w = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a, b = (torch.randint(-128, 128, (n, h, w, c), generator=gen, device=dev, dtype=torch.int8).permute(0, 3, 1, 2)
+            for _ in range(2))
+    ma, mb = (torch.randint(0, (1 << 20) + 1, (c,), generator=gen, device=dev, dtype=torch.int32) for _ in range(2))
+    gate = torch.randint(0, (1 << 14) + 1, (n, c), generator=gen, device=dev, dtype=torch.int32)
+    a[:, :, 0, 0], b[:, :, 0, 0], ma[0], mb[1], gate[0, :2] = 127, 127, 1 << 20, 1 << 20, 0
+    a[:, :, 0, 1], b[:, :, 0, 1], gate[-1, -2:] = -128, -128, 1 << 14
+    return a, b, ma, mb, gate
+
+
+def _q_add_case(a, b, ma, mb, relu, gate, route):
+    before, gated = dict(q_add.launches_by_route), q_add.gated
+    got = q_add(a, b, ma, mb, relu, gate)
+    assert {k: q_add.launches_by_route[k] - n for k, n in before.items()} == {k: int(k == route) for k in before}
+    assert q_add.gated - gated == int(gate is not None)
+    assert got.dtype == torch.int8 and got.shape == a.shape and got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, q_add_reference(a, b, ma, mb, relu, gate))
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["no_gate", "gate"])
+@pytest.mark.parametrize("case", list(_Q_ADD_SHAPES))
+def test_q_add_equals_reference_bit_for_bit(dev, case, gated):
+    a, b, ma, mb, gate = _q_add_operands(_Q_ADD_SHAPES[case], sum(map(ord, case)) + gated, dev)
+    _q_add_case(a, b, ma, mb, case != "fpn", gate if gated else None, "vec16")
+
+
+@pytest.mark.parametrize("case", ["c_24", "c_24_relu_gate", "misaligned"])
+def test_q_add_scalar_route(dev, case):
+    """C % 16 != 0, and a map that starts one byte past a 16-byte boundary."""
+    shape = (2, 256, 9, 10) if case == "misaligned" else (3, 24, 17, 19)
+    a, b, ma, mb, gate = _q_add_operands(shape, 7, dev)
+    if case == "misaligned":
+        n, c, h, w = shape
+        a = torch.empty(n * h * w * c + 1, dtype=torch.int8, device=dev)[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+        a.copy_(b.flip(0))
+        assert a.is_contiguous(memory_format=torch.channels_last) and a.data_ptr() % 16 == 1
+    gated = case != "c_24"
+    _q_add_case(a, b, ma, mb, gated, gate if gated else None, "scalar")
+
+
+def test_int8_seresnext50_fpn_on_cuda_runs_its_adds_on_q3(dev, monkeypatch):
+    """One 256^2 forward of the int8 SEResNeXt50-FPN(128): its 20 adds on
+    Q3's vector route, the 16 of the bottlenecks with their SE gates; bit-equal
+    to the same calibration built and run with every add, excitation
+    included, on the eager int32 formula."""
+    from pytorch_toolbelt_tpu_torch.zoo import EncoderDecoderModel, FPNDecoder, ResizeHead, seresnext50_encoder
+    from pytorch_toolbelt_tpu_torch.zoo import quantized_encdec as TQE
+    from test_torch_q_add import _formula  # the SE excitation and add as separate int32 passes
+
+    torch.manual_seed(0)
+    encoder = seresnext50_encoder()
+    decoder = FPNDecoder(encoder.get_output_spec(), out_channels=128)
+    model = EncoderDecoderModel(encoder, decoder, ResizeHead(decoder.get_output_spec(), num_classes=19)).eval().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cal, x = (torch.rand(2, 3, 256, 256, generator=gen, device=dev) for _ in range(2))
+    g, input_id, head_id = TQE._build_encdec_graph(model)
+    with torch.no_grad(), TQE._full_fp32():
+        vals, amax, input_amax = TQE._calibrate(g, input_id, cal, False, (256, 256), "absmax", 99.9, 1.0)
+
+    def build():
+        return TQE._build_int8_encdec(g, input_id, head_id, amax, input_amax, set(), "mul", False, None, dev, vals,
+                                      cal)
+
+    forward = build()
+    launches, gated, scalar = q_add.launches, q_add.gated, q_add.launches_by_route["scalar"]
+    got = forward(x)
+    assert (q_add.launches - launches, q_add.gated - gated, q_add.launches_by_route["scalar"] - scalar) == (20, 16, 0)
+
+    monkeypatch.setattr(TQE, "q_add", _formula)
+    assert torch.equal(got, build()(x))
+
+
 # ---------------------------------------------------------------------------
 # Strip-sharded tiled inference and 3D tiles on the card
 # ---------------------------------------------------------------------------
@@ -1136,6 +1219,11 @@ def _launch_each_entry_point(name, dev):
         else:
             q_upsample_cat(x, torch.zeros(1, 16, 16, 16, dtype=torch.int8, device=dev).contiguous(
                 memory_format=torch.channels_last), mh, mw)
+    elif name == "q_add":
+        x = torch.randint(-127, 128, (1, 16, 8, 8), generator=gen, dtype=torch.int8).to(dev).contiguous(
+            memory_format=torch.channels_last)
+        m = torch.full((16,), 4096, dtype=torch.int32, device=dev)
+        q_add(x, x, m, m, True, torch.ones(1, 16, dtype=torch.int32, device=dev))
     elif name in ("conv3x3_tma_wgmma", "conv3x3_ld_wgmma", "conv3x3_wmma"):
         c_in = 3 if name == "conv3x3_ld_wgmma" else 16
         pack = _pack_wmma if name == "conv3x3_wmma" else pack_conv3x3_weights
@@ -1149,7 +1237,7 @@ def _launch_each_entry_point(name, dev):
 
 
 @pytest.mark.parametrize("name", ["grid_merge", "scatter_merge", "conv3x3_tma_wgmma", "conv3x3_ld_wgmma",
-                                  "conv3x3_wmma", "K4", "K5", "qconv2d", "q_upsample", "q_upsample_cat"])
+                                  "conv3x3_wmma", "K4", "K5", "qconv2d", "q_upsample", "q_upsample_cat", "q_add"])
 def test_entry_points_restore_the_current_device(dev, name):
     """A launch on cuda:1 tensors from a thread on cuda:0 leaves it on cuda:0."""
     if torch.cuda.device_count() < 2:
