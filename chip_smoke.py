@@ -2640,7 +2640,11 @@ def phase_int8_encdec(dev, smi, strict: bool = True):
     ``ENCDEC_GATED_ADDS`` of them gated); the forward and the TTA timed;
     shapes, finite values and the distance to the fp32 forward.  Returns the
     counted runs' launches, Q1's sums of the forward and of the TTA call,
-    Q2's of the forward and Q3's of the forward and of the TTA call."""
+    Q2's of the forward and Q3's of the forward and of the TTA call.  The
+    checked calls come from the forward without CUDA graphs (``.eager``), as
+    a replay makes no call; the graphed forward and TTA call must equal their
+    eager versions bit for bit, and the counted, timed and profiled runs
+    replay the graphs."""
     from pytorch_toolbelt_tpu_torch.inference import MultiscaleTTA, d4_image2mask
     from pytorch_toolbelt_tpu_torch.zoo import quantize_encoder_decoder_inference
     from pytorch_toolbelt_tpu_torch.zoo import quantized_encdec
@@ -2657,14 +2661,17 @@ def phase_int8_encdec(dev, smi, strict: bool = True):
     with _checked_calls("qconv2d", _check_q1("SEResNeXt50-FPN", True, strict=strict)) as convs, \
             _checked_calls("q_upsample", _check_q2(True)) as ups, \
             _checked_calls("q_add", _check_q3(True), module=quantized_encdec) as adds:
-        q3(x)
+        q3.eager(x)  # the kernels' calls as the forward makes them: a replay of its graph makes none
     torch.cuda.synchronize()
     q1_3 = _q1_totals(convs, "SEResNeXt50-FPN")
     _q1_classes(convs, "one forward at batch 1", smi)
     q2_3 = _q2_totals(ups)
     q3_3 = _q3_totals(adds, "SEResNeXt50-FPN")
+    q3(x)  # the first graphed call captures
+    if not torch.equal(q3(x), q3.eager(x)):
+        raise AssertionError("the int8 SEResNeXt50-FPN's graphed forward differs from its eager forward")
     _reset_int8_counts()
-    got = q3(x)
+    got = q3(x)  # a replay: the kernels' counters add the launches its graph holds
     torch.cuda.synchronize()
     counts3 = _int8_counts()
     _check_q1_routes(convs, counts3["qconv2d_by_route"], "SEResNeXt50-FPN forward", strict)
@@ -2679,13 +2686,17 @@ def phase_int8_encdec(dev, smi, strict: bool = True):
     _log_profile_by_kind("[16] profiled int8 SEResNeXt50-FPN forward", lambda: q3(x), ENCDEC_KINDS, smi, top=8)
 
     tta = MultiscaleTTA(lambda xi: d4_image2mask(q3, xi), size_offsets=MS_OFFSETS)
+    tta_eager = MultiscaleTTA(lambda xi: d4_image2mask(q3.eager, xi), size_offsets=MS_OFFSETS)
     with _checked_calls("qconv2d", _check_q1("SEResNeXt50-FPN TTA", True, strict=strict)) as tta_convs, \
             _checked_calls("q_add", _check_q3(True), module=quantized_encdec) as tta_adds:
-        tta(x)
+        tta_eager(x)
     torch.cuda.synchronize()
     q1_tta = _q1_totals(tta_convs, "SEResNeXt50-FPN TTA")
     _q1_classes(tta_convs, "one call of config 3's TTA (batch-8 views at 1024^2 and 768^2)", smi)
     q3_tta = _q3_totals(tta_adds, "SEResNeXt50-FPN TTA")
+    tta(x)  # each key's first graphed call captures its graph
+    if not torch.equal(tta(x), tta_eager(x)):
+        raise AssertionError("config 3's TTA call over the graphed int8 forward differs from it over the eager one")
     _reset_int8_counts()
     out = tta(x)
     torch.cuda.synchronize()

@@ -8,7 +8,8 @@ counterpart here.
 
 **Spans.**  The port marks its layer boundaries with :func:`span`.  A span
 switches on only while a ``torch.profiler`` records (``trace()``, a user's
-``torch.profiler.profile``); otherwise it costs one flag check.  When on, it
+``torch.profiler.profile``) or a CUDA graph captures it (below); otherwise it
+costs two flag checks.  When on, it
 is a profiler range named ``ptt.<name>`` (torch's ``RecordFunction``, as
 ``record_function`` makes, at a tenth of its host cost) on the profiler's
 clock, which the card's kernels share (``trace(log_dir)`` shows it on the
@@ -23,14 +24,25 @@ between its ends.  The spans:
 * ``tta.multiscale`` (``MultiscaleTTA``, a root), ``tta.augment`` and
   ``tta.deaugment`` (the d4 views and the multiscale resizes);
 * ``int8.forward`` (the int8 UNet's and encoder-decoder's forward),
+  ``int8.graph`` (a replay of the encoder-decoder's CUDA graph),
   ``int8.add`` (residual and FPN adds), ``int8.se`` (SE gates),
-  ``int8.head`` (the head's conv, dequant and resize), ``int8.pool`` (the
-  int8 max and average pools);
+  ``int8.head`` (the head's conv, dequant and resize; in the
+  encoder-decoder two calls a forward: the conv and dequant, then the
+  resize), ``int8.pool`` (the int8 max and average pools);
 * ``q1.call`` (the host's path of one ``qconv2d`` call on the card).
 
 The roots and parents (``tiles.apply``, ``tta.multiscale``,
 ``int8.forward``) and ``q1.call`` time the host only: a CUDA event pair
 costs the host ~20-40 µs under a profiler, which no reader of theirs needs.
+
+**Spans inside a CUDA graph.**  While a graph captures inside
+:func:`capture_spans`, a span does not depend on a profiler: with a
+:class:`GraphSpans` each span that times the card records its event pair
+into the graph (``external`` events, so the pair times every replay) and
+host-only spans are off; with None every span is off.  Replaying the graph through
+:meth:`GraphSpans.replay` while a profiler records counts each captured
+span as one call with no host time, under the span open on the host at the
+replay.
 
 :func:`span_totals` returns ``{name: {"calls", "host_s", "self_host_s",
 "device_s", "parents", "roots"}}`` over every span closed while a profiler
@@ -51,12 +63,12 @@ import os
 import threading
 import time
 from collections import Counter, defaultdict
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Optional, Union
 
 import torch
 from torch.autograd.profiler import record_function
 
-__all__ = ["trace", "benchmark", "Timer", "span", "span_totals", "reset_spans"]
+__all__ = ["trace", "benchmark", "Timer", "span", "span_totals", "reset_spans", "GraphSpans", "capture_spans"]
 
 
 @contextlib.contextmanager
@@ -174,6 +186,9 @@ class _Totals:
         self.sums = defaultdict(_Sums)
         # (name, parent's name, root id, host s, self host s, start event, end event, device index), as they closed
         self.closed = []
+        for graph in getattr(self, "replayed", ()):
+            graph.pending = None
+        self.replayed = []  # the GraphSpans whose last replay is not summed yet
 
     def stack(self) -> list:
         stack = getattr(self.local, "stack", None)
@@ -193,6 +208,9 @@ class _Totals:
         up to the first whose events the card has not passed."""
         with self.lock:
             closed, self.closed = self.closed, []
+            replayed = list(self.replayed)
+        for graph in replayed:
+            graph.settle(wait)
         if wait:
             for index in {r[-1] for r in closed if r[-1] >= 0}:
                 torch.cuda.synchronize(index)
@@ -201,16 +219,22 @@ class _Totals:
                 if end is not None and not wait and not end.query():
                     self.closed[:0] = closed[k:]
                     return
-                sums = self.sums[name]
-                sums.calls += 1
-                sums.host_s += host_s
-                sums.self_host_s += self_s
-                sums.parents[parent] += 1
-                if sums.last_root != root:  # a thread's spans close in the order of their roots
-                    sums.last_root, sums.roots = root, sums.roots + 1
+                device_s = 0.0
                 if end is not None:
-                    sums.device_s += start.elapsed_time(end) / 1e3
+                    device_s = start.elapsed_time(end) / 1e3
                     self.free[index] += [start, end]
+                self.add(name, parent, root, host_s, self_s, device_s)
+
+    def add(self, name: str, parent, root: int, host_s: float, self_s: float, device_s: float) -> None:
+        """One call into its name's sums; the lock is held."""
+        sums = self.sums[name]
+        sums.calls += 1
+        sums.host_s += host_s
+        sums.self_host_s += self_s
+        sums.device_s += device_s
+        sums.parents[parent] += 1
+        if sums.last_root != root:  # a thread's spans close in the order of their roots
+            sums.last_root, sums.roots = root, sums.roots + 1
 
 
 _totals = _Totals()
@@ -273,6 +297,10 @@ def span(name: str, device: Union[bool, torch.Tensor] = True):
     ``device``: a tensor (times the card's stream where the tensor is on a
     CUDA device), ``True`` (the current CUDA device, once CUDA is
     initialised) or ``False`` (host time only)."""
+    if _captures:
+        capture = getattr(_totals.local, "capture", None)
+        if capture is not None:  # this thread captures a CUDA graph
+            return capture.span(name, device)
     if not torch.autograd._profiler_enabled():
         return _OFF
     stack = _totals.stack()
@@ -297,3 +325,113 @@ def reset_spans() -> None:
     """Forget every span's sums and the spans not yet summed."""
     with _totals.lock:
         _totals.clear()
+
+
+class GraphSpans:
+    """The spans captured into one CUDA graph (:func:`capture_spans`): an
+    event pair each, which every replay of the graph records anew."""
+
+    def __init__(self):
+        self.records = []  # (name, parent's name inside the graph or None, start event, end event), as they closed
+        self.open = []  # the spans open while the graph captures
+        self.pending = None  # (parent's name, root id) of the replay not summed yet
+
+    def span(self, name: str, device):
+        index = _cuda_index(device)
+        if index < 0 or any(s.name == name for s in self.open):
+            return _OFF
+        return _CapturedSpan(self, name, index)
+
+    def replay(self, graph: "torch.cuda.CUDAGraph") -> None:
+        """Replay ``graph``, which was captured with these spans.  While a
+        profiler records, its spans count as calls under the span open here,
+        summed by :func:`span_totals` or before the next replay, which
+        records their events anew and so first waits for this replay's end
+        (a caller that replays two copies of a graph in turns waits only for
+        the replay before last)."""
+        self.settle(wait=True)
+        graph.replay()
+        if self.records and torch.autograd._profiler_enabled():
+            stack = _totals.stack()
+            parent = stack[-1] if stack else None
+            with _totals.lock:
+                self.pending = (None, next(_totals.root_ids)) if parent is None else (parent.name, parent.root)
+                _totals.replayed.append(self)
+
+    def settle(self, wait: bool) -> None:
+        """Sum the last replay's spans once the card has passed it: after a
+        wait for it, or with ``wait=False`` only if it has."""
+        if self.pending is None:
+            return
+        last = self.records[-1][3]  # the last to close is the last on the stream
+        if wait:
+            last.synchronize()
+        elif not last.query():
+            return
+        with _totals.lock:
+            if self.pending is None:  # summed or forgotten meanwhile
+                return
+            (parent, root), self.pending = self.pending, None
+            _totals.replayed.remove(self)
+            for name, inner, start, end in self.records:
+                _totals.add(name, inner or parent, root, 0.0, 0.0, start.elapsed_time(end) / 1e3)
+
+
+class _NoSpans:
+    """The spans of a capture that records none."""
+
+    @staticmethod
+    def span(name: str, device):
+        return _OFF
+
+
+class _CapturedSpan:
+    __slots__ = ("graph", "name", "stream", "parent", "start")
+
+    def __init__(self, graph: GraphSpans, name: str, index: int):
+        self.graph, self.name, self.stream = graph, name, torch.cuda.current_stream(index)
+
+    def __enter__(self):
+        spans = self.graph.open
+        self.parent = spans[-1].name if spans else None
+        spans.append(self)
+        self.start = _external_event(self.stream)
+        return self
+
+    def __exit__(self, *exc):
+        end = _external_event(self.stream)
+        self.graph.open.pop()
+        self.graph.records.append((self.name, self.parent, self.start, end))
+        return False
+
+
+def _external_event(stream) -> torch.cuda.Event:
+    """A timing event recorded on ``stream``: in a capture, an event node of
+    the graph (not a dependency between streams)."""
+    event = torch.cuda.Event(enable_timing=True, external=True)
+    event.record(stream)
+    return event
+
+
+_captures = 0  # threads inside capture_spans
+
+
+@contextlib.contextmanager
+def capture_spans(spans: Optional[GraphSpans]):
+    """For a block that captures a CUDA graph on this thread: with ``spans``,
+    every span opened that times the card records its event pair into the
+    graph and into ``spans`` (with or without a profiler) and host-only spans
+    are off; with None, every span is off.  Other threads' spans are as
+    before."""
+    global _captures
+    local = _totals.local
+    previous = getattr(local, "capture", None)
+    local.capture = _NoSpans if spans is None else spans
+    with _totals.lock:
+        _captures += 1
+    try:
+        yield spans
+    finally:
+        local.capture = previous
+        with _totals.lock:
+            _captures -= 1

@@ -35,8 +35,30 @@ The architecture is built once as a list of nodes (:class:`_Graph`) from the
 port's modules, with HWIO float64 weights, and interpreted three times: the
 float32 calibration replay, the scale propagation and constant building (in
 numpy float64, the JAX package's arithmetic), and the integer forward.
+
+**CUDA graphs.**  On the card the integer forward, from the input's quantize
+to the head's dequantised logits at the head's resolution, is one CUDA graph
+per input key (shape, dtype, device, memory format) and model, replayed in
+one launch: the first call of a key runs eagerly, then captures it.  The
+head's resize runs eagerly after the replay and writes a new tensor, so no
+output aliases the graph's memory.  The graphs of a model share one memory
+pool and one static input a key, so they replay one at a time (a lock) on
+the stream of the model's first capture.  Calls on the CPU, calls on another
+stream, calls made while the caller's stream captures a graph and calls of
+keys beyond the first ``_GRAPH_KEYS`` run eagerly.  ``int8_graph`` counts
+captures (one a key), replays and eager calls (set-up's bias-correction
+replay among them).  The kernels' own launch counters count what the card
+runs: an eager call's launches, and at each replay the launches its graph
+holds; a capture counts none.  Each key also keeps two copies of its graph
+with the spans ``int8.se``, ``int8.add``, ``int8.head`` and ``int8.pool`` as
+event pairs inside it (``utils/profiling.py``), which replay in turns
+instead while a profiler records, so that reading a replay's events waits
+only for the replay before last.  The plain graph carries no event: on an
+H100 the forward's ~40 event pairs cost the card 1.6-2.9% of its time.
 """
 
+import threading
+import types
 from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
@@ -59,13 +81,16 @@ from .quantized_unet import (
     _resize_matmul,
 )
 from ..nn.simple import _same_padding
-from ..ops.quantized import _ADD_SHIFT, _GATE_SHIFT, _requant, q_add
+from ..ops.quantized import _ADD_SHIFT, _GATE_SHIFT, _requant, q_add, q_upsample, q_upsample_cat, qconv2d
+from ..utils import profiling
 from ..utils.profiling import span
 from ..nn.upsample import BilinearInterpolationLayer
 
 __all__ = ["quantize_encoder_decoder_inference", "attribute_quantization_error"]
 
 _CL = torch.channels_last
+_GRAPH_KEYS = 8  # CUDA graphs a model keeps, one per input key: a mix of image sizes stays bounded in memory
+int8_graph = types.SimpleNamespace(captures=0, replays=0, eager_calls=0)  # the integer forwards' calls, by kind
 
 
 class _Node:
@@ -411,6 +436,108 @@ def _sra_clip(acc: torch.Tensor, bits: int) -> torch.Tensor:
     return ((acc + (1 << (bits - 1))) >> bits).clamp(-_QMAX, _QMAX).to(torch.int8)
 
 
+_KERNELS = (qconv2d, q_upsample, q_upsample_cat, q_add)  # whose launch counters a replay adds to
+
+
+def _launch_counts() -> dict:
+    """The kernels' launch counters, flat: {(kernel, counter, route): n}."""
+    counts = {}
+    for kernel in _KERNELS:
+        counts[kernel, "launches", None] = kernel.launches
+        counts[kernel, "gated", None] = getattr(kernel, "gated", 0)
+        counts.update(((kernel, "launches_by_route", route), n) for route, n in kernel.launches_by_route.items())
+    return counts
+
+
+def _launches_since(before: dict) -> dict:
+    return {key: n - before[key] for key, n in _launch_counts().items() if n != before[key]}
+
+
+def _count_launches(launches: dict) -> None:
+    for (kernel, counter, route), n in launches.items():
+        if route is None:
+            setattr(kernel, counter, getattr(kernel, counter) + n)
+        else:
+            kernel.launches_by_route[route] += n
+
+
+class _KeyGraphs:
+    """One input key's CUDA graphs of ``run``: the plain one, and two copies
+    with its spans as event pairs, which replay in turns while a profiler
+    records.  All read one static input; each writes its own static output."""
+
+    def __init__(self, run: Callable, x: torch.Tensor, channels_last: bool, pool):
+        self.x = torch.empty_like(x, memory_format=_CL if channels_last else torch.contiguous_format).copy_(x)
+        stream = torch.cuda.Stream(x.device)
+        # thread_local: another thread's waits on the card (a producer of the caller's) do not end the capture
+        capture = dict(pool=pool, stream=stream, capture_error_mode="thread_local")
+        before, self.turn = _launch_counts(), 0
+        self.plain, *self.traced = (self._capture(run, spans, capture)
+                                    for spans in (None, profiling.GraphSpans(), profiling.GraphSpans()))
+        captured = _launches_since(before)
+        _count_launches({key: -n for key, n in captured.items()})  # a capture launches nothing
+        self.launches = {key: n // 3 for key, n in captured.items()}  # each replay does
+
+    def _capture(self, run: Callable, spans: Optional[profiling.GraphSpans], capture: dict) -> tuple:
+        graph = torch.cuda.CUDAGraph()
+        with profiling.capture_spans(spans), torch.cuda.graph(graph, **capture):
+            y = run(self.x)
+        return graph, spans, y
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """Replay on x: a static output, which a later replay overwrites."""
+        self.x.copy_(x)
+        with span("int8.graph", x):
+            if torch.autograd._profiler_enabled():
+                graph, spans, y = self.traced[self.turn]
+                self.turn ^= 1
+                spans.replay(graph)
+            else:
+                graph, _, y = self.plain
+                graph.replay()
+        _count_launches(self.launches)
+        return y
+
+
+class _Int8Graphs:
+    """``run`` (the integer forward up to the head's dequantised logits)
+    replayed from one CUDA graph per input key, or run eagerly (the module's
+    docstring says when), then ``tail(logits, x)``, which writes a new
+    tensor."""
+
+    def __init__(self, run: Callable, tail: Callable):
+        self.run, self.tail, self.graphs = run, tail, {}
+        self.pool = self.stream = None  # made at the first capture
+        self.lock = threading.Lock()
+
+    def eager(self, x: torch.Tensor) -> torch.Tensor:
+        int8_graph.eager_calls += 1
+        return self.tail(self.run(x), x)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if not x.is_cuda or torch.cuda.is_current_stream_capturing():
+            return self.eager(x)
+        stream = torch.cuda.current_stream(x.device)
+        if self.stream is not None and stream != self.stream:
+            return self.eager(x)
+        channels_last = x.is_contiguous(memory_format=_CL) and not x.is_contiguous()
+        key = (tuple(x.shape), x.dtype, x.device, channels_last)
+        with self.lock:  # the tail reads the static output before another replay can write it
+            graphs = self.graphs.get(key)
+            if graphs is not None:
+                int8_graph.replays += 1
+                with torch.cuda.device(x.device):
+                    return self.tail(graphs(x), x)
+            y = self.eager(x)  # a key's first call also warms the libraries and the kernels' lazy state up
+            if len(self.graphs) < _GRAPH_KEYS:
+                with torch.cuda.device(x.device):
+                    if self.pool is None:
+                        self.pool, self.stream = torch.cuda.graph_pool_handle(), stream
+                    self.graphs[key] = _KeyGraphs(self.run, x, channels_last, self.pool)
+                int8_graph.captures += 1
+            return y
+
+
 def quantize_encoder_decoder_inference(
     model: EncoderDecoderModel,
     calibration_images,
@@ -447,9 +574,12 @@ def quantize_encoder_decoder_inference(
     Returns:
         ``forward(x: [B, C, H, W]) -> [B, num_classes, H, W]`` float32 logits
         (or ``{output_name: logits}``) approximating ``model.eval()(x)`` at
-        int8 PTQ fidelity.  Its float32 convs and products (fallback convs,
-        SE squeezes, the head's resize) switch TF32 off process-wide while
-        each runs, so that they are full float32 as in the JAX package.
+        int8 PTQ fidelity, replayed from a CUDA graph per input key on the
+        card (the module's docstring); ``forward.eager`` is the same forward
+        without graphs, bit for bit.  Its float32 convs and products
+        (fallback convs, SE squeezes, the head's resize) switch TF32 off
+        process-wide while each runs, so that they are full float32 as in the
+        JAX package.
     """
     if requant not in ("mul", "shift"):
         raise ValueError(f"requant must be 'mul' or 'shift'; got {requant!r}")
@@ -501,7 +631,7 @@ def _build_int8_encdec(g, input_id, head_id, amax, input_amax, f32_nodes, requan
         return _requant(acc, requant, dq.b_q, dq.relu, dq.rnd, dq.shift, dq.mult, dq.clamp).contiguous(
             memory_format=_CL)
 
-    def exec_node(node, vals_q, resize_hw):
+    def exec_node(node, vals_q):
         if node.op == "conv":
             c = consts[node.id]
             x_q = vals_q[node.inputs[0]]
@@ -547,17 +677,20 @@ def _build_int8_encdec(g, input_id, head_id, amax, input_amax, f32_nodes, requan
         if node.op == "upsample2":
             x_q = vals_q[node.inputs[0]]
             return _q_upsample(x_q, 2 * x_q.shape[2], 2 * x_q.shape[3])
-        if node.op == "head":
+        if node.op == "head":  # the dequantised logits at the head's resolution; resize() brings them to the input's
             c = consts[node.id]
             with span("int8.head", vals_q[node.inputs[0]]):
-                logits = c["conv"](vals_q[node.inputs[0]]).float() * c["sw"] + c["bias"]
-                with _full_fp32():
-                    return _resize_matmul(logits, resize_hw, out_align)
+                return c["conv"](vals_q[node.inputs[0]]).float() * c["sw"] + c["bias"]
         raise AssertionError(node.op)  # pragma: no cover
+
+    def resize(logits, out_hw):
+        with span("int8.head", logits), _full_fp32():
+            return _resize_matmul(logits, out_hw, out_align)
 
     # ---- integer constants (+ optional sequential bias correction) ------
     vals_q: Optional[Dict[int, torch.Tensor]] = {input_id: quantize_input(x_cal)} if bias_correction else None
     cal_hw = tuple(x_cal.shape[2:]) if bias_correction else None
+    int8_graph.eager_calls += bias_correction
 
     with torch.no_grad():
         for node in g.nodes:
@@ -579,7 +712,7 @@ def _build_int8_encdec(g, input_id, head_id, amax, input_amax, f32_nodes, requan
                     }
                     sigma[node.id] = sig_out
                     if bias_correction:
-                        vals_q[node.id] = exec_node(node, vals_q, cal_hw)
+                        vals_q[node.id] = exec_node(node, vals_q)
                     continue
                 w_abs = _absorb_grouped(a["w"], sig_in, a["groups"])
                 if requant == "mul":
@@ -644,30 +777,43 @@ def _build_int8_encdec(g, input_id, head_id, amax, input_amax, f32_nodes, requan
                     # to 1, so a constant per-channel shift before the resize
                     # equals the same shift after it: correct against the final
                     # float32 logits directly
-                    q0 = exec_node(node, vals_q, cal_hw)
+                    q0 = resize(exec_node(node, vals_q), cal_hw)
                     err = vals[node.id].mean(dim=(0, 2, 3)) - q0.mean(dim=(0, 2, 3))
                     consts[node.id]["bias"] = consts[node.id]["bias"] + err.view(1, -1, 1, 1)
             if bias_correction and node.op != "head":
-                vals_q[node.id] = exec_node(node, vals_q, cal_hw)
+                vals_q[node.id] = exec_node(node, vals_q)
 
     del vals, vals_q
     last_use = {src: node.id for node in g.nodes for src in node.inputs}
 
-    @torch.no_grad()
-    def forward(x: torch.Tensor):
-        resize_hw = tuple(x.shape[2:])
+    def logits(x: torch.Tensor) -> torch.Tensor:
+        vals_fw = {input_id: quantize_input(x)}
+        for node in g.nodes:
+            if node.op == "input":
+                continue
+            vals_fw[node.id] = exec_node(node, vals_fw)
+            for src in node.inputs:  # free what no later node reads
+                if last_use[src] == node.id:
+                    del vals_fw[src]
+        return vals_fw[head_id]
+
+    graphs = _Int8Graphs(logits, lambda y, x: resize(y, tuple(x.shape[2:])))
+
+    def run(x: torch.Tensor, through: Callable):
         with span("int8.forward", device=False):
-            vals_fw = {input_id: quantize_input(x)}
-            for node in g.nodes:
-                if node.op == "input":
-                    continue
-                vals_fw[node.id] = exec_node(node, vals_fw, resize_hw)
-                for src in node.inputs:  # free what no later node reads
-                    if last_use[src] == node.id:
-                        del vals_fw[src]
-        out = vals_fw[head_id]
+            out = through(x)
         if output_name is not None:
             return {output_name: out}
         return out
 
+    @torch.no_grad()
+    def forward(x: torch.Tensor):
+        return run(x, graphs)
+
+    @torch.no_grad()
+    def eager(x: torch.Tensor):
+        """The same forward with no CUDA graph (counted in ``int8_graph.eager_calls``)."""
+        return run(x, graphs.eager)
+
+    forward.eager = eager
     return forward

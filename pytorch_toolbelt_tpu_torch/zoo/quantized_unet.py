@@ -231,7 +231,11 @@ def _fold_block(block) -> List[tuple]:
     return out
 
 
+@functools.lru_cache(maxsize=64)
 def _linear_matrix(in_size, out_size, align_corners, device) -> torch.Tensor:
+    """One axis's float32 interpolation matrix on ``device``, made once per
+    shape (shared by every caller: read only), so that a resize copies
+    nothing from the host and does not wait for the card."""
     return torch.as_tensor(_linear_weights(in_size, out_size, align_corners, np.float32), device=device)
 
 

@@ -849,12 +849,142 @@ def test_int8_seresnext50_fpn_on_cuda_runs_its_adds_on_q3(dev, monkeypatch):
                                       cal)
 
     forward = build()
-    launches, gated, scalar = q_add.launches, q_add.gated, q_add.launches_by_route["scalar"]
-    got = forward(x)
-    assert (q_add.launches - launches, q_add.gated - gated, q_add.launches_by_route["scalar"] - scalar) == (20, 16, 0)
+    counted = lambda: (q_add.launches, q_add.gated, q_add.launches_by_route["scalar"])  # noqa: E731
+    for call in ("the first, eager, then captured", "a replay"):
+        before = counted()
+        got = forward(x)
+        assert tuple(n - b for n, b in zip(counted(), before)) == (20, 16, 0), call
 
     monkeypatch.setattr(TQE, "q_add", _formula)
     assert torch.equal(got, build()(x))
+
+
+@pytest.fixture(scope="module")
+def int8_seresnext():
+    """Fresh int8 SEResNeXt50-FPN(128) forwards, 19 classes, all built from
+    one calibration on the card (2 images of 256^2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from pytorch_toolbelt_tpu_torch.zoo import EncoderDecoderModel, FPNDecoder, ResizeHead, seresnext50_encoder
+    from pytorch_toolbelt_tpu_torch.zoo import quantized_encdec as TQE
+
+    dev = torch.device("cuda", 0)
+    torch.manual_seed(0)
+    encoder = seresnext50_encoder()
+    decoder = FPNDecoder(encoder.get_output_spec(), out_channels=128)
+    model = EncoderDecoderModel(encoder, decoder, ResizeHead(decoder.get_output_spec(), num_classes=19)).eval().to(dev)
+    cal = torch.rand(2, 3, 256, 256, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    g, input_id, head_id = TQE._build_encdec_graph(model)
+    with torch.no_grad(), TQE._full_fp32():
+        vals, amax, input_amax = TQE._calibrate(g, input_id, cal, False, (256, 256), "absmax", 99.9, 1.0)
+    del model
+    return lambda: TQE._build_int8_encdec(g, input_id, head_id, amax, input_amax, set(), "mul", False, None, dev,
+                                          vals, cal)
+
+
+def _graph_counts():
+    from pytorch_toolbelt_tpu_torch.zoo import quantized_encdec as TQE
+
+    return dict(vars(TQE.int8_graph))
+
+
+def _counted_since(before):
+    return tuple(_graph_counts()[k] - before[k] for k in ("captures", "replays", "eager_calls"))
+
+
+@pytest.mark.parametrize("batch,size", [(8, 1024), (8, 768), (32, 512), (9, 512)],
+                         ids=["msd4-1024", "msd4-768", "stream-32", "stream-9"])
+def test_int8_encdec_cuda_graph_replays_equal_the_eager_forward(int8_seresnext, batch, size):
+    """The benchmark's keys: the first call runs eagerly and captures, later
+    calls replay; every output is the eager forward's bit for bit, and one
+    call's output is left as it was by the calls after it."""
+    forward = int8_seresnext()
+    gen = torch.Generator(device="cuda").manual_seed(batch * size)
+    x1, x2 = (torch.rand(batch, 3, size, size, generator=gen, device="cuda") for _ in range(2))
+    want1, want2 = forward.eager(x1), forward.eager(x2)
+    before = _graph_counts()
+    got1 = forward(x1)
+    assert _counted_since(before) == (1, 0, 1)
+    got2 = forward(x2)
+    kept = got2.clone()
+    got3, got4 = forward(x1), forward(x2)
+    assert _counted_since(before) == (1, 3, 1)
+    assert torch.equal(got1, want1) and torch.equal(got2, want2) and torch.equal(got3, want1)
+    assert torch.equal(got4, want2) and torch.equal(got2, kept) and got2.data_ptr() != got3.data_ptr()
+
+
+def test_multiscale_tta_over_the_graphed_int8_encdec_equals_it_eager(int8_seresnext):
+    """msd4's request: 8 d4 views at 1024^2 and at 768^2, one replay each
+    once both keys are captured."""
+    from pytorch_toolbelt_tpu_torch.inference import MultiscaleTTA, d4_image2mask
+
+    forward = int8_seresnext()
+    x = torch.rand(1, 3, 1024, 1024, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    tta = lambda f: MultiscaleTTA(lambda v: d4_image2mask(f, v), size_offsets=[0, -256])(x)  # noqa: E731
+    want = tta(forward.eager)
+    tta(forward)
+    before = _graph_counts()
+    got = tta(forward)
+    assert _counted_since(before) == (0, 2, 0)
+    assert torch.equal(got, want)
+
+
+def test_int8_encdec_graph_spans_time_each_node_on_the_card(int8_seresnext):
+    """Under a profiler each add, SE gate, pool and head conv counts one call
+    a replay with the card's time (the graph's event pairs), under
+    ``int8.graph``, the third replay's copy after a wait for the first; one
+    graph launch a forward, no host-to-card copy and no stream sync."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_toolbelt_tpu_torch.utils import profiling
+
+    forward = int8_seresnext()
+    x = torch.rand(2, 3, 256, 256, device="cuda")
+    want = forward(x)
+    profiling.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = [forward(x) for _ in range(3)]
+        torch.cuda.synchronize()
+    totals = profiling.span_totals()
+    assert all(torch.equal(y, want) for y in got)
+    for name, calls in (("int8.add", 60), ("int8.se", 48), ("int8.pool", 3), ("int8.graph", 3), ("int8.head", 6)):
+        assert totals[name]["calls"] == calls and totals[name]["device_s"] > 0, name
+    assert totals["int8.add"]["parents"] == {"int8.graph": 60} and "q1.call" not in totals
+    names = [e.name for e in prof.events()]
+    assert names.count("cudaGraphLaunch") == 3 and "cudaStreamSynchronize" not in names
+    assert not any(name.startswith("Memcpy HtoD") for name in names)
+
+
+def test_int8_encdec_calls_on_another_stream_run_eagerly(int8_seresnext):
+    """The graphs replay on the stream of the model's first capture only: a
+    call on another stream runs eagerly, is counted so and gives the same
+    output."""
+    forward = int8_seresnext()
+    x = torch.rand(2, 3, 128, 128, device="cuda")
+    want = forward(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = _graph_counts()
+    with torch.cuda.stream(side):
+        got = forward(x)
+    torch.cuda.current_stream().wait_stream(side)
+    assert _counted_since(before) == (0, 0, 1)
+    assert torch.equal(got, want) and torch.equal(forward(x), want)
+    assert _counted_since(before) == (0, 1, 1)
+
+
+def test_int8_encdec_keys_beyond_the_cap_run_eagerly_and_are_counted(int8_seresnext):
+    from pytorch_toolbelt_tpu_torch.zoo import quantized_encdec as TQE
+
+    forward = int8_seresnext()
+    xs = [torch.rand(1, 3, 64 + 32 * k, 64, device="cuda") for k in range(TQE._GRAPH_KEYS + 1)]
+    before = _graph_counts()
+    firsts = [forward(x) for x in xs]
+    assert _counted_since(before) == (TQE._GRAPH_KEYS, 0, TQE._GRAPH_KEYS + 1)
+    before = _graph_counts()
+    again = [forward(x) for x in xs]
+    assert _counted_since(before) == (0, TQE._GRAPH_KEYS, 1)
+    assert all(torch.equal(a, b) for a, b in zip(firsts, again))
 
 
 # ---------------------------------------------------------------------------

@@ -82,10 +82,11 @@ def _case_multiscale(m):
     x = torch.rand(1, 3, 64, 64)
     fn = lambda: MultiscaleTTA(lambda v: d4_image2mask(m["encdec"], v), size_offsets=[0, -32])(x)  # noqa: E731
     ops = m["encdec_ops"]
-    per = lambda k: (2 * ops[k], {"int8.forward": 2 * ops[k]}, 1)  # noqa: E731
+    per = lambda k, n=1: (2 * n * ops[k], {"int8.forward": 2 * n * ops[k]}, 1)  # noqa: E731
+    # the head's span twice a forward: its conv and dequant, then the resize to the input's size
     return fn, {"tta.multiscale": (1, {None: 1}, 1), "tta.augment": (3, {"tta.multiscale": 3}, 1),
                 "tta.deaugment": (3, {"tta.multiscale": 3}, 1), "int8.forward": (2, {"tta.multiscale": 2}, 1),
-                "int8.add": per("add"), "int8.se": per("se"), "int8.head": per("head"),
+                "int8.add": per("add"), "int8.se": per("se"), "int8.head": per("head", 2),
                 "int8.pool": per("maxpool3s2")}
 
 
@@ -94,7 +95,7 @@ def _case_encdec_forward(m):
     ops = m["encdec_ops"]
     return (lambda: m["encdec"](x)), {
         "int8.forward": (1, {None: 1}, 1), "int8.add": (ops["add"], {"int8.forward": ops["add"]}, 1),
-        "int8.se": (ops["se"], {"int8.forward": ops["se"]}, 1), "int8.head": (1, {"int8.forward": 1}, 1),
+        "int8.se": (ops["se"], {"int8.forward": ops["se"]}, 1), "int8.head": (2, {"int8.forward": 2}, 1),
         "int8.pool": (1, {"int8.forward": 1}, 1)}
 
 
@@ -256,9 +257,13 @@ def test_spans_time_the_card_and_change_nothing_there():
     assert torch.equal(got_encdec, want_encdec) and torch.equal(got_unet, want_unet)
     # the spans are host ranges: nothing on the card's timeline that a reader of kernels would count
     names = {(e.device_type, e.name) for e in prof.events() if e.name.startswith("ptt.")}
-    assert {d for d, _ in names} == {DeviceType.CPU} and ("ptt.int8.add" in {n for _, n in names})
+    assert {d for d, _ in names} == {DeviceType.CPU} and {"ptt.int8.graph", "ptt.int8.pool"} <= {n for _, n in names}
     ops = _graph_ops(model)
+    # the encoder-decoder replays its CUDA graph: the spans inside it count once a replay, under int8.graph
+    assert totals["int8.graph"]["calls"] == 1 and totals["int8.graph"]["device_s"] > 0
     assert totals["int8.add"]["calls"] == ops["add"] and totals["int8.add"]["device_s"] > 0
-    assert totals["int8.head"]["calls"] == 2 and totals["int8.head"]["device_s"] > 0
+    assert totals["int8.add"]["parents"] == {"int8.graph": ops["add"]}
+    # the encoder-decoder's head in the graph and its resize after it, the UNet's head
+    assert totals["int8.head"]["calls"] == 3 and totals["int8.head"]["device_s"] > 0
     assert totals["q1.call"]["calls"] > 0 and totals["q1.call"]["device_s"] == 0.0
     assert totals["q1.call"]["parents"].get("int8.forward", 0) > 0
